@@ -8,16 +8,38 @@ Needs one CUDA card and ``nvcc``. Phases, each reported on its own lines:
 
 1. the card: ``nvidia-smi`` name and power limit, and torch's device name;
 2. build: every kernel under ``src/repro_torch/kernels/csrc`` (setup time);
-3. each kernel against its plain PyTorch version on the card, bit for bit
-   (``torch.equal`` on the bits), over the plan x ``block_chunks`` grid, the
-   keep fractions of the fused filter, three dtypes and one full-size bin;
-4. the main path: one training-corpus table fed by CDC trickle ingest, one
-   AutoComp cycle compacting it to Iceberg's default 512 MiB target file
-   size, and one GDPR-style rewrite-delete through the retention queue --
-   checked against numpy at full size, with the kernels' launch counts;
-5. each kernel timed at the main path's own inputs with CUDA events, beside
-   its bandwidth bound, its plain version and one PyTorch library call.
+3. each kernel against its plain PyTorch version on the card: both
+   ``compact_pack`` kernels bit for bit (``torch.equal`` on the bits) over
+   the plan x ``block_chunks`` grid, the keep fractions of the fused filter,
+   three dtypes and one full-size bin; ``rmsnorm``, ``decode_attn``,
+   ``paged_attn`` and ``flash_attn`` within their registry ``tol`` and
+   within ``ROW_REL_BAR`` (each output row against its own scale) over
+   GQA groups 1/2/4, head_dim 64/128, bf16 and f32, causal / windowed /
+   non-causal masks, ragged lengths (0 included) and every clamped
+   candidate of each axis, exact axes bit-equal across their candidates,
+   and a planted fault in each attention kernel's inputs that the bar
+   must reject;
+4. the compaction path: one training-corpus table fed by CDC trickle
+   ingest, one AutoComp cycle compacting it to Iceberg's default 512 MiB
+   target file size, and one GDPR-style rewrite-delete through the
+   retention queue -- checked against numpy at full size, with the
+   ``compact_pack`` kernels' launch counts;
+5. the ``compact_pack`` kernels timed at that path's own inputs with CUDA
+   events, beside the bandwidth bound, the plain version and one PyTorch
+   library call;
+6. the registry sweep at the full width of Granite-3-8B
+   (``src/repro/configs/granite_3_8b.py``: d_model 4096, 32 heads, 8 KV
+   heads, head_dim 128): each op against its plain version and the planted
+   faults, then the sweep path -- ``tune_op`` on the full-width operands,
+   ``tune_registry`` on the card (one cache entry per op), a second
+   ``tune_registry`` served from the cache with 0 evaluations,
+   ``tuned_page_size`` reading the swept page -- with the kernels' launch
+   counts; then each op again at its tuned point, at full width and on its
+   sweep example cell, and each kernel timed at its tuned point beside its
+   bound, its plain version and one PyTorch library call.
 
+The tuned-point cache lives in a fresh temporary directory for the run
+(``REPRO_TORCH_TUNED_DIR``), so no earlier sweep changes a default point.
 It exits non-zero when a phase fails, and prints as its last line
 ``{"ok": true, "device": {...}}`` only when every phase passed.
 """
@@ -26,11 +48,14 @@ from __future__ import annotations
 
 import argparse
 import functools
+import importlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -47,23 +72,42 @@ from repro_torch.core.act import Scheduler  # noqa: E402
 from repro_torch.data import packing  # noqa: E402
 from repro_torch.data.shards import (TokenShardWriter, decode_shard,  # noqa: E402
                                      decode_shard_padded)
-from repro_torch.kernels import api, build  # noqa: E402
+from repro_torch.kernels import api, build, tune, tuned  # noqa: E402
 from repro_torch.kernels.compact_pack import compact_pack as kern  # noqa: E402
 from repro_torch.kernels.compact_pack import ops, ref  # noqa: E402
 from repro_torch.lst import (Catalog, InMemoryStore,  # noqa: E402
                              PredicateDelete, plan_rewrite_delete)
 from repro_torch.lst.compaction import plan_table  # noqa: E402
 from repro_torch.lst.workload import SimClock  # noqa: E402
+from repro_torch.kernels.paged_attn import tuned_page_size  # noqa: E402
 
 MIB = 1 << 20
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA's data sheet
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores, the same
 CHUNK_ROWS, CHUNK_COLS = kern.CHUNK_ROWS, kern.CHUNK_COLS
 CHUNK_TOKENS = kern.CHUNK_TOKENS
 SOURCE = "src/repro_torch/kernels/csrc/compact_pack.cu"
 REPLACES = {
     "compact_chunks": "src/repro/kernels/compact_pack/compact_pack.py:58",
     "compact_filter": "src/repro/kernels/compact_pack/compact_pack.py:128",
+    "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:23",
+    "decode_attn": "src/repro/kernels/decode_attn/decode_attn.py:77",
+    "flash_attn": "src/repro/kernels/flash_attn/flash_attn.py:76",
 }
+# the sweep path's kernels: wrapper module (its LAUNCHES count) and source
+SWEEP_KERNELS = {
+    name: (importlib.import_module(f"repro_torch.kernels.{name}.{name}"),
+           f"src/repro_torch/kernels/csrc/{name}.cu")
+    for name in ("rmsnorm", "decode_attn", "flash_attn")}
+# The sweep ops' on-card bar, beside the registry's absolute tol: each
+# output row against its own scale. A long decode or causal row of
+# unit-normal inputs has entries of about sqrt(e / length), under the 5e-2
+# tol, so the tol alone would pass a kernel that dropped part of a row.
+# Rounding to bf16 moves an entry by at most an ulp of the row's largest
+# (2^-8 of it); f32 kernels agree to about 1e-6.
+ROW_REL_BAR = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# Granite-3-8B (src/repro/configs/granite_3_8b.py)
+GRANITE = {"d_model": 4096, "heads": 32, "kv_heads": 8, "head_dim": 128}
 DEFAULTS = {"shards": 1024, "commits": 8, "tokens_per_shard": 262_000,
             "target_mib": 512, "selectivity": 0.05, "seed": 0}
 
@@ -496,6 +540,383 @@ def phase_times(args, dev, launches, largest):
     return results
 
 
+# ---------------------------------------------------------------- the sweep
+def float_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    if a.numel() == 0:
+        return 0.0
+    return float((a.float() - b.float()).abs().max().item())
+
+
+def row_rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Each output row (the last axis) against its own scale: the largest
+    ``max|a - b| / max|b|`` over the rows."""
+    if a.numel() == 0:
+        return 0.0
+    a, b = a.float(), b.float()
+    scale = b.abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+    return float(((a - b).abs().amax(-1) / scale).max().item())
+
+
+def check_close(op, got, want, *what) -> tuple:
+    """The kernel's output within the op's registry ``tol`` and within
+    ``ROW_REL_BAR`` of its dtype; returns (max abs err, max row err)."""
+    err, rel = float_err(got, want), row_rel_err(got, want)
+    assert got.dtype == want.dtype and got.shape == want.shape, \
+        (op.name, what, got.dtype, want.dtype, got.shape, want.shape)
+    assert err <= op.tol and rel <= ROW_REL_BAR[got.dtype], \
+        (op.name, what, err, rel)
+    return err, rel
+
+
+def planted_fault(name: str, a, kw) -> torch.Tensor:
+    """The kernel run with a fault a wrong kernel could have: decode drops
+    the last 64 live positions of every row longer than 64 (a lost final
+    tile or split); flash drops up to the 64 oldest keys of the last 64
+    query rows (a window of S - 64)."""
+    if name == "decode_attn":
+        q, k, v, lens = a
+        return api.call(name, q, k, v, torch.where(lens > 64, lens - 64,
+                                                   lens))
+    q, k, v = a
+    return api.call(name, q, k, v, **{**kw, "window": q.shape[2] - 64})
+
+
+def assert_fault_rejected(name: str, a, kw) -> tuple:
+    """The planted fault must fail ``ROW_REL_BAR``; returns its (max abs
+    err, max row err) against the plain version."""
+    bad = planted_fault(name, a, kw)
+    want = api.get_op(name).ref(*a, **kw)
+    err, rel = float_err(bad, want), row_rel_err(bad, want)
+    assert rel > ROW_REL_BAR[bad.dtype], ("planted fault passed", name,
+                                          str(bad.dtype), err, rel)
+    return err, rel
+
+
+def reset_sweep_launches() -> None:
+    for mod, _ in SWEEP_KERNELS.values():
+        mod.reset_launches()
+
+
+def sweep_launches() -> dict:
+    return {name: mod.LAUNCHES[name]
+            for name, (mod, _) in SWEEP_KERNELS.items()}
+
+
+def phase_parity_sweep_ops(dev):
+    """The sweep's three kernels against their plain versions on a small
+    grid, over every clamped candidate of each axis; exact axes bit-equal
+    across their candidates, ``paged_attn`` bit-equal to ``decode_attn`` at
+    every page."""
+    gen = torch.Generator().manual_seed(4321)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen).to(dtype).to(dev)
+
+    worst = {"rmsnorm": 0.0, "decode_attn": 0.0, "flash_attn": 0.0}
+    worst_rel = {f"{n} {str(dt)[6:]}": 0.0 for n in worst
+                 for dt in (torch.bfloat16, torch.float32)}
+    faults = {}
+    zero_row = 0.0
+    n_checks = 0
+    dtypes = (torch.bfloat16, torch.float32)
+
+    op = api.get_op("rmsnorm")
+    for dtype in dtypes:
+        for r, d in ((1024, 64), (640, 128), (256, 4096), (96, 8192)):
+            x, sc = randn((r, d), dtype), randn((d,), dtype)
+            want = op.ref(x, sc)
+            outs = []
+            for br in api.clamped_axes(op, x, sc)["block_rows"]:
+                got = op.run({"block_rows": br}, x, sc)
+                err, rel = check_close(op, got, want, dtype, r, d, br)
+                worst["rmsnorm"] = max(worst["rmsnorm"], err)
+                key = f"rmsnorm {str(dtype)[6:]}"
+                worst_rel[key] = max(worst_rel[key], rel)
+                outs.append(got)
+                n_checks += 1
+            assert all(same_bits(o, outs[0]) for o in outs), \
+                ("rmsnorm block_rows not exact", dtype, r, d)
+
+    op, pop = api.get_op("decode_attn"), api.get_op("paged_attn")
+    b, s = 5, 1024
+    lens = torch.tensor([0, 1, 333, 1000, s], dtype=torch.int32, device=dev)
+    for dtype in dtypes:
+        for d in (64, 128):
+            for group in (1, 2, 4):
+                hkv = 2
+                q = randn((b, hkv * group, d), dtype)
+                k, v = randn((b, s, hkv, d), dtype), randn((b, s, hkv, d),
+                                                           dtype)
+                want = op.ref(q, k, v, lens)
+                for bk in api.clamped_axes(op, q, k, v, lens)["block_k"]:
+                    got = op.run({"block_k": bk}, q, k, v, lens)
+                    err, rel = check_close(op, got, want, dtype, d, group, bk)
+                    worst["decode_attn"] = max(worst["decode_attn"], err)
+                    key = f"decode_attn {str(dtype)[6:]}"
+                    worst_rel[key] = max(worst_rel[key], rel)
+                    zero_row = max(zero_row, float_err(got[0], want[0]))
+                    n_checks += 1
+                if d == 128 and group == 4:
+                    faults[f"decode_attn {str(dtype)[6:]}"] = \
+                        assert_fault_rejected("decode_attn",
+                                              (q, k, v, lens), {})
+                base = api.call("decode_attn", q, k, v, lens)
+                for page in api.clamped_axes(pop, q, k, v, lens)["page"]:
+                    got = pop.run({"page": page}, q, k, v, lens)
+                    assert same_bits(got, base), ("paged_attn", dtype, d,
+                                                  group, page)
+                    n_checks += 1
+
+    op = api.get_op("flash_attn")
+    b, s = 2, 1024
+    masks = ((True, 0), (True, 32), (True, 128), (False, 0), (False, 32))
+    for dtype in dtypes:
+        for d in (64, 128):
+            for group in (1, 2, 4):
+                hkv = 2
+                q = randn((b, hkv * group, s, d), dtype)
+                k, v = randn((b, hkv, s, d), dtype), randn((b, hkv, s, d),
+                                                           dtype)
+                axes = api.clamped_axes(op, q, k, v)
+                for causal, window in masks:
+                    kw = {"causal": causal, "window": window}
+                    want = op.ref(q, k, v, **kw)
+                    for bk in axes["block_k"]:
+                        outs = []
+                        for bq in axes["block_q"]:
+                            got = op.run({"block_q": bq, "block_k": bk},
+                                         q, k, v, **kw)
+                            err, rel = check_close(op, got, want, dtype, d,
+                                                   group, kw, bq, bk)
+                            worst["flash_attn"] = max(worst["flash_attn"],
+                                                      err)
+                            key = f"flash_attn {str(dtype)[6:]}"
+                            worst_rel[key] = max(worst_rel[key], rel)
+                            outs.append(got)
+                            n_checks += 1
+                        assert all(same_bits(o, outs[0]) for o in outs), \
+                            ("flash_attn block_q not exact", dtype, d, group,
+                             kw, bk)
+                if d == 128 and group == 4:
+                    faults[f"flash_attn {str(dtype)[6:]}"] = \
+                        assert_fault_rejected("flash_attn", (q, k, v),
+                                              {"causal": True, "window": 0})
+    print(f"parity: {n_checks} sweep-op cases (bfloat16, float32; head_dim "
+          f"64, 128; GQA groups 1, 2, 4; causal, window 32 and 128, "
+          f"non-causal; lengths 0, 1, 333, 1000, 1024; every clamped "
+          f"candidate); max |kernel - plain| {json.dumps(worst)} within tol "
+          f"(rmsnorm 0.1, attention 0.05); max row error (max |kernel - "
+          f"plain| / max |plain| per output row) {json.dumps(worst_rel)} "
+          f"within the bar (bfloat16 {ROW_REL_BAR[torch.bfloat16]}, float32 "
+          f"{ROW_REL_BAR[torch.float32]}); lengths==0 rows {zero_row}; "
+          f"rmsnorm block_rows and flash_attn block_q bit-equal across "
+          f"candidates; paged_attn bit-equal to decode_attn at every page")
+    print(f"parity: planted faults (decode drops the last 64 live positions "
+          f"of each row, flash the 64 oldest keys of the last 64 rows) "
+          f"rejected by the row bar, (max abs err, max row error): "
+          f"{json.dumps(faults)}")
+
+
+def valid_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps in one (sequence, head)."""
+    qp = np.arange(s, dtype=np.int64)
+    lo = np.maximum(0, qp - window + 1) if window else np.zeros_like(qp)
+    hi = qp + 1 if causal else np.full_like(qp, s)
+    return int((hi - lo).sum())
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def full_width_cells(seed: int, dev):
+    """Granite-3-8B's full-width operands, drawn from ``seed`` on the card:
+    ``(args, kwargs, bytes, flops)`` per op, the counts being what this
+    run's data needs (the rows below each length; the pairs the mask
+    keeps)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bf16 = torch.bfloat16
+    h, hkv, d = GRANITE["heads"], GRANITE["kv_heads"], GRANITE["head_dim"]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    cells = {}
+    # 8 sequences x 4096 tokens of d_model; trained norm weights sit near 1
+    x = randn(8 * 4096, GRANITE["d_model"])
+    sc = (1 + 0.1 * torch.randn((GRANITE["d_model"],), generator=gen,
+                                device=dev)).to(bf16)
+    cells["rmsnorm"] = ((x, sc), {}, 2 * nbytes(x) + nbytes(sc),
+                        3 * x.numel())
+    # one sequence of prefill_8k, causal
+    s = 8192
+    q, k, v = randn(1, h, s, d), randn(1, hkv, s, d), randn(1, hkv, s, d)
+    cells["flash_attn"] = ((q, k, v), {"causal": True},
+                           2 * nbytes(q) + nbytes(k, v),
+                           4 * h * d * valid_pairs(s, True, 0))
+    # 8 sequences of decode_32k, lengths drawn in [1, 32768], one at 32768
+    s = 32768
+    rng = np.random.RandomState(seed)
+    lens_np = rng.randint(1, s + 1, size=8)
+    lens_np[rng.randint(8)] = s
+    qd = randn(8, h, d)
+    kd, vd = randn(8, s, hkv, d), randn(8, s, hkv, d)
+    lens = torch.from_numpy(lens_np.astype(np.int32)).to(dev)
+    live = int(np.minimum(lens_np, s).sum())
+    dec_bytes = 2 * nbytes(qd) + nbytes(lens) + 2 * live * hkv * d * 2
+    cells["decode_attn"] = ((qd, kd, vd, lens), {}, dec_bytes,
+                            4 * h * d * live)
+    cells["paged_attn"] = cells["decode_attn"]
+    for name, (a, kw, nb, fl) in cells.items():
+        shapes = ", ".join(f"{tuple(t.shape)} {str(t.dtype)[6:]}" for t in a)
+        print(f"full width {name}: {shapes} {json.dumps(kw)}; "
+              f"{nb} bytes, {fl} flops")
+    print(f"full width decode lengths (seed {seed}): {lens_np.tolist()}")
+    return cells
+
+
+def phase_full_width_parity(cells, which: str):
+    """Each op at full width through ``api.call`` against its plain
+    version, at the point the call resolves: the default before the sweep
+    (the cache is fresh), the tuned point after it. Returns the max abs
+    errors."""
+    errs, rels, points = {}, {}, {}
+    for name, (a, kw, _, _) in cells.items():
+        op = api.get_op(name)
+        points[name] = op.clamp(api.resolve_point(op, *a, **kw), *a, **kw)
+        got = api.call(name, *a, **kw)
+        want = op.ref(*a, **kw)
+        errs[name], rels[name] = check_close(op, got, want, which)
+        if name == "paged_attn":
+            assert same_bits(got, api.call("decode_attn", *a, **kw))
+        del got, want
+    print(f"full width parity at the {which} points {json.dumps(points)}: "
+          f"max |kernel - plain| {json.dumps(errs)} within tol; max row "
+          f"error {json.dumps(rels)} within the bar; paged_attn bit-equal to "
+          f"decode_attn")
+    return errs
+
+
+def phase_full_width_faults(cells):
+    """The planted faults at full width, rejected by the row bar."""
+    faults = {name: assert_fault_rejected(name, *cells[name][:2])
+              for name in ("decode_attn", "flash_attn")}
+    print(f"full width planted faults rejected by the row bar, (max abs "
+          f"err, max row error): {json.dumps(faults)}")
+
+
+def phase_example_parity():
+    """Each op on its sweep example cell (``example(quick=False)``) at the
+    point the sweep cached for it, against its plain version."""
+    errs, points = {}, {}
+    for name, op in api.ops().items():
+        a, kw = op.example(False)
+        points[name] = op.clamp(api.resolve_point(op, *a, **kw), *a, **kw)
+        got, want = op.run(points[name], *a, **kw), op.ref(*a, **kw)
+        if op.tol == 0:
+            assert same_bits(got, want), (name, points[name])
+            errs[name] = (0.0, 0.0)
+        else:
+            errs[name] = check_close(op, got, want, "example", points[name])
+    print(f"example cells at the swept points {json.dumps(points)}: (max "
+          f"abs err, max row error) {json.dumps(errs)} within tol and the "
+          f"row bar (compact_pack bit-equal)")
+
+
+def phase_sweep_path(cells):
+    """The slice's path: ``tune_op`` on the full-width operands, then the
+    registry sweep on the card twice (the second from the cache), then the
+    page size serving reads. Returns the launches and the winners."""
+    reset_sweep_launches()
+    winners = {}
+    t0 = time.perf_counter()
+    for name, (a, kw, _, _) in cells.items():
+        out = tune.tune_op(name, args=a, kwargs=kw, force=True)
+        winners[name] = out
+        print(f"tune_op {name} {out.shape_key}: point {json.dumps(out.point)}"
+              f" objective {out.objective_us} us, default "
+              f"{json.dumps(out.default)}, {out.evaluations} evaluations; "
+              f"wall us by point {json.dumps(out.history)}")
+    sweep = tune.tune_registry(quick=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sweep_launches()
+    kind = tuned.device_kind()
+    for name, out in sweep.items():
+        rec = tuned.entry(name, out.shape_key)
+        assert rec is not None and rec["device_kind"] == kind, (name, rec)
+        assert not out.cache_hit and out.evaluations > 0, name
+        print(f"tune_registry {name} {out.shape_key}: point "
+              f"{json.dumps(out.point)} objective {out.objective_us} us, "
+              f"{out.evaluations} evaluations")
+    assert set(sweep) == set(api.ops()), sorted(sweep)
+    again = tune.tune_registry(quick=False)
+    assert all(o.cache_hit and o.evaluations == 0 for o in again.values())
+    page = tuned_page_size(2048, batch=4)
+    assert page == sweep["paged_attn"].point["page"], page
+    print(f"sweep path: {len(sweep)} ops swept under {kind!r}, second sweep "
+          f"0 evaluations (all cache hits), tuned_page_size(2048, batch=4) "
+          f"= {page}; wall {wall} s; launches {json.dumps(launches)}")
+    assert all(n > 0 for n in launches.values()), launches
+    return launches, winners
+
+
+def library_call(name, a, kw):
+    """One PyTorch call computing the same function: the yardstick only."""
+    F = torch.nn.functional
+    if name == "rmsnorm":
+        x, sc = a
+        return lambda: F.rms_norm(x, (x.shape[-1],), weight=sc, eps=1e-6)
+    if name == "flash_attn":
+        q, k, v = a
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+    q, k, v, lens = a
+    s = k.shape[1]
+    mask = (torch.arange(s, device=q.device)[None, :] < lens[:, None]
+            )[:, None, None, :]
+    qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def phase_full_width_times(cells, launches, errs, reps):
+    """Each kernel at its tuned point, the default point, its plain version
+    and its library call, by CUDA events."""
+    results = []
+    for name, (mod, source) in SWEEP_KERNELS.items():
+        a, kw, nb, fl = cells[name]
+        op = api.get_op(name)
+        point = op.clamp(api.resolve_point(op, *a, **kw), *a, **kw)
+        default = op.clamp(api.default_point(op), *a, **kw)
+        ms = time_ms(lambda: op.run(point, *a, **kw), reps)
+        default_ms = time_ms(lambda: op.run(default, *a, **kw), reps)
+        plain_ms = time_ms(lambda: op.ref(*a, **kw), reps)
+        lib_ms = time_ms(library_call(name, a, kw), reps)
+        t_bytes, t_ops = nb / HBM_BYTES_PER_S, fl / BF16_FLOPS_PER_S
+        bound_ms = 1e3 * max(t_bytes, t_ops)
+        results.append(dict(
+            name=name, route="cuda", source=source,
+            replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=lib_ms))
+        print(f"{name}: point {json.dumps(point)} {ms} ms, default "
+              f"{json.dumps(default)} {default_ms} ms; plain {plain_ms} ms, "
+              f"library {lib_ms} ms, bound {bound_ms} ms "
+              f"({results[-1]['bound_by']}; {nb / ms / 1e6} GB/s, "
+              f"{fl / ms / 1e9} TFLOP/s)")
+    a, kw, nb, _ = cells["paged_attn"]
+    op = api.get_op("paged_attn")
+    point = op.clamp(api.resolve_point(op, *a, **kw), *a, **kw)
+    ms = time_ms(lambda: op.run(point, *a, **kw), reps)
+    plain_ms = time_ms(lambda: op.ref(*a, **kw), reps)
+    print(f"paged_attn: point {json.dumps(point)} {ms} ms (the repage's "
+          f"pack and gather included), plain {plain_ms} ms")
+    return results
+
+
 def main() -> int:
     args = parse_args()
     if not torch.cuda.is_available():
@@ -505,14 +926,30 @@ def main() -> int:
     reduced = {k: getattr(args, k) for k in DEFAULTS
                if getattr(args, k) != DEFAULTS[k]}
     print(f"reduced: {json.dumps(reduced)}")
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    smi, name = phase_device()
-    phase_build()
-    phase_parity(dev)
-    phase_parity_full_bin(dev, bin_chunks(args), args.selectivity)
-    launches, largest = phase_main_path(args, dev)
-    kernels = phase_times(args, dev, launches, largest)
+    tuned_dir = tempfile.mkdtemp(prefix="chip_smoke_tuned_")
+    os.environ["REPRO_TORCH_TUNED_DIR"] = tuned_dir
+    tuned.invalidate_memo()
+    try:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        smi, name = phase_device()
+        phase_build()
+        phase_parity(dev)
+        phase_parity_full_bin(dev, bin_chunks(args), args.selectivity)
+        phase_parity_sweep_ops(dev)
+        launches, largest = phase_main_path(args, dev)
+        kernels = phase_times(args, dev, launches, largest)
+        del largest
+        cells = full_width_cells(args.seed, dev)
+        phase_full_width_parity(cells, "default")
+        phase_full_width_faults(cells)
+        sweep_counts, _ = phase_sweep_path(cells)
+        errs = phase_full_width_parity(cells, "tuned")
+        phase_example_parity()
+        kernels += phase_full_width_times(cells, sweep_counts, errs,
+                                          args.reps)
+    finally:
+        shutil.rmtree(tuned_dir, ignore_errors=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -9,8 +9,9 @@ Every phase is a pluggable component (NFR1) and every default implementation
 is deterministic under identical inputs (NFR2). Nothing here knows about
 Iceberg vs. our LST substrate beyond the connector protocol (NFR3).
 
-Ported so far: the single-pool OODA loop and the retention queue. The fleet
-scheduler, the service, the triggers and the autotuner are still to port.
+Ported so far: the single-pool OODA loop, the retention queue and the
+autotuner (``core/autotune.py``, which the kernel sweep drives). The fleet
+scheduler, the service and the triggers are still to port.
 """
 
 from repro_torch.core.model import Candidate, CandidateStats, Scope  # noqa: F401

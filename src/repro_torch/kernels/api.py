@@ -11,7 +11,8 @@ An op declares
     mis-grid on a shorter one),
   * a ``shape_key`` that names the (shape, dtype) cell a tuned point is
     cached under, and
-  * representative ``example`` shapes a sweep tunes on.
+  * representative ``example`` operands a sweep tunes on, built on the
+    card unless the caller asks for another device.
 
 ``call(name, ...)`` is the single dispatch: resolve the point (explicit
 override > persisted tuned cache (``repro_torch.kernels.tuned``) >
@@ -33,6 +34,8 @@ import dataclasses
 import importlib
 import math
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+
+import torch
 
 
 def fit_block(value: int, extent: int) -> int:
@@ -64,7 +67,8 @@ class TunableOp:
     ref: Callable                        # ref(*args, **kw) -> out
     clamp: Callable                      # clamp(point, *args, **kw) -> point
     shape_key: Callable                  # shape_key(*args, **kw) -> str
-    example: Callable                    # example(quick: bool) -> (args, kw)
+    example: Callable                    # example(quick, device="cuda")
+                                         #   -> (args, kw) on that device
     exact_axes: frozenset = frozenset()  # axes that provably keep bits
     tol: float = 0.0                     # |kernel - ref| bound (0 = exact)
 
@@ -76,7 +80,22 @@ _REGISTRY: Dict[str, TunableOp] = {}
 # import it.
 _BUILTIN_OPS = (
     "repro_torch.kernels.compact_pack.ops",
+    "repro_torch.kernels.flash_attn.ops",
+    "repro_torch.kernels.decode_attn.ops",
+    "repro_torch.kernels.paged_attn.ops",
+    "repro_torch.kernels.rmsnorm.ops",
 )
+
+
+def example_device(op_name: str, device) -> torch.device:
+    """The device an op's ``example`` builds on: the card by default.
+    With no card the default raises, so a sweep never times the plain
+    version on the CPU and caches it as the card's."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{op_name}.example: no CUDA device; pass "
+                           "device='cpu' to build the operands on the CPU")
+    return device
 
 
 def register(op: TunableOp) -> TunableOp:

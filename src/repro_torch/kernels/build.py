@@ -6,6 +6,10 @@ repo root, and loaded with ``ctypes``. The build happens at first use and
 again whenever the source or the flags change (a SHA-256 stamp beside the
 library). Nothing here runs at import time: a CPU-only machine imports the
 package and never reaches ``nvcc``.
+
+``dtype_code`` and ``raise_on`` are the checks every ctypes wrapper shares:
+the type code its C entry point takes, and the ``cudaGetLastError`` that
+entry point returns.
 """
 
 from __future__ import annotations
@@ -73,6 +77,24 @@ def build_all() -> Dict[str, pathlib.Path]:
     names = sorted(p.stem for p in _CSRC.glob("*.cu"))
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         return dict(zip(names, pool.map(build, names)))
+
+
+# the float types the attention and norm kernels are instantiated for
+DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+
+
+def dtype_code(dtype, kernel: str) -> int:
+    name = str(dtype).removeprefix("torch.")
+    if name not in DTYPE_CODES:
+        raise ValueError(f"{kernel}: no kernel for {name}; the kernel takes "
+                         f"{sorted(DTYPE_CODES)}")
+    return DTYPE_CODES[name]
+
+
+def raise_on(err: int, kernel: str) -> None:
+    """Raise if a C entry point's ``cudaGetLastError`` is not success."""
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
 
 
 def load(name: str) -> ctypes.CDLL:

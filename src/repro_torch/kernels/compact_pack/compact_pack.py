@@ -28,6 +28,8 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import build
+
 CHUNK_ROWS = 8
 CHUNK_COLS = 128
 CHUNK_TOKENS = CHUNK_ROWS * CHUNK_COLS  # 1024
@@ -50,8 +52,6 @@ def reset_launches() -> None:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """Build (at first use) and bind the kernels' C entry points."""
-    from repro_torch.kernels import build
-
     lib = build.load("compact_pack")
     i64, ptr = ctypes.c_int64, ctypes.c_void_p
     lib.compact_chunks_launch.argtypes = [ptr, ptr, ptr, i64, i64, ptr]
@@ -78,11 +78,6 @@ def _check_operands(src: torch.Tensor, out: torch.Tensor,
                              f"{t.device}")
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-
-
 def compact_chunks_kernel(src: torch.Tensor, chunk_map: torch.Tensor
                           ) -> torch.Tensor:
     """Gather blocks of ``src`` according to ``chunk_map``.
@@ -107,7 +102,7 @@ def compact_chunks_kernel(src: torch.Tensor, chunk_map: torch.Tensor
         err = lib.compact_chunks_launch(src.data_ptr(), out.data_ptr(),
                                         chunk_map.data_ptr(), n_out,
                                         block_bytes, stream)
-    _raise_on(err, "compact_chunks")
+    build.raise_on(err, "compact_chunks")
     LAUNCHES["compact_chunks"] += 1
     return out
 
@@ -151,6 +146,6 @@ def compact_filter_kernel(src: torch.Tensor, chunk_sel: torch.Tensor,
                                         out_idx.data_ptr(), dest.data_ptr(),
                                         n_steps, row_bytes, n_kept_rows,
                                         n_out * CHUNK_ROWS, stream)
-    _raise_on(err, "compact_filter")
+    build.raise_on(err, "compact_filter")
     LAUNCHES["compact_filter"] += 1
     return out

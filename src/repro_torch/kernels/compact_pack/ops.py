@@ -181,10 +181,12 @@ def _shape_key(src_tokens, chunk_map, keep_mask=None):
             f":{dtype}{suffix}")
 
 
-def _example(quick: bool):
+def _example(quick: bool, device="cuda"):
+    device = api.example_device("compact_pack", device)
     n_chunks = 128 if quick else 1024
     frag = 16 if quick else 64
-    src = (torch.arange(n_chunks * CHUNK_TOKENS) % 971).to(torch.int32)
+    src = (torch.arange(n_chunks * CHUNK_TOKENS) % 971).to(torch.int32
+                                                           ).to(device)
     cm = plan_compaction([frag] * (n_chunks // frag),
                          fragment_order=list(
                              reversed(range(n_chunks // frag))))

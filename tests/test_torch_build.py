@@ -16,6 +16,10 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.compact_pack import compact_pack as kern
+from repro_torch.kernels.decode_attn import decode_attn as dkern
+from repro_torch.kernels.flash_attn import flash_attn as fkern
+from repro_torch.kernels.rmsnorm.rmsnorm import check_operands as rms_check
+from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_kernel
 
 
 @pytest.fixture()
@@ -85,7 +89,8 @@ class TestBuild:
 
     def test_real_sources_are_listed(self):
         assert sorted(p.name for p in build._CSRC.glob("*.cu")) \
-            == ["compact_pack.cu"]
+            == ["compact_pack.cu", "decode_attn.cu", "flash_attn.cu",
+                "rmsnorm.cu"]
         assert os.path.basename(build._BUILD_DIR) == "kernels"
 
 
@@ -135,3 +140,72 @@ class TestOperandChecks:
         rows = src.reshape(-1, 128)[torch.from_numpy(np.flatnonzero(keep))]
         assert torch.equal(got.reshape(-1, 128)[:10], rows)
         assert not got.reshape(-1, 128)[10:].any()
+
+
+class TestSweepKernelChecks:
+    """The rmsnorm, decode_attn and flash_attn wrappers' operand checks,
+    run on CPU tensors; each returns the C entry point's dtype code."""
+
+    def test_dtype_codes_and_launch_errors(self):
+        assert build.dtype_code(torch.float32, "k") == 0
+        assert build.dtype_code(torch.bfloat16, "k") == 1
+        with pytest.raises(ValueError, match="no kernel for float16"):
+            build.dtype_code(torch.float16, "k")
+        build.raise_on(0, "k")
+        with pytest.raises(RuntimeError, match="error 700"):
+            build.raise_on(700, "k")
+
+    def test_rmsnorm_checks(self):
+        x = torch.zeros(4, 64, dtype=torch.bfloat16)
+        sc = torch.ones(64, dtype=torch.bfloat16)
+        assert rms_check(x, sc) == 1
+        for bad_x, bad_sc in [(x, sc.float()), (x[:, :60], sc[:60]),
+                              (x.t(), torch.ones(4, dtype=torch.bfloat16)),
+                              (x, torch.ones(32, dtype=torch.bfloat16))]:
+            with pytest.raises(ValueError):
+                rms_check(bad_x, bad_sc)
+
+    def _decode(self, h=8, hkv=2, d=64, dtype=torch.bfloat16):
+        return (torch.zeros(2, h, d, dtype=dtype),
+                torch.zeros(2, 16, hkv, d, dtype=dtype),
+                torch.zeros(2, 16, hkv, d, dtype=dtype),
+                torch.zeros(2, dtype=torch.int32))
+
+    def test_decode_checks(self):
+        assert dkern.check_operands(*self._decode()) == 1
+        assert dkern.check_operands(*self._decode(d=128,
+                                                  dtype=torch.float32)) == 0
+        q, k, v, lens = self._decode()
+        for bad in [self._decode(d=96), self._decode(h=32, hkv=2),
+                    self._decode(h=6, hkv=2),
+                    (q, k, v, lens.long()), (q, k, v[:, :8], lens),
+                    (q, k.transpose(1, 2), v, lens)]:
+            with pytest.raises(ValueError):
+                dkern.check_operands(*bad)
+
+    def test_flash_checks(self):
+        q = torch.zeros(1, 4, 64, 128, dtype=torch.bfloat16)
+        kv = torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16)
+        assert fkern.check_operands(q, kv, kv, 64, 64) == 1
+        for args in [(q, kv, kv, 64, 256), (q, kv, kv, 0, 64),
+                     (q[..., :80].contiguous(), kv[..., :80].contiguous(),
+                      kv[..., :80].contiguous(), 64, 64),
+                     (q, kv.float(), kv, 64, 64),
+                     (q.transpose(2, 3), kv, kv, 64, 64)]:
+            with pytest.raises(ValueError):
+                fkern.check_operands(*args)
+
+    def test_devices_without_a_kernel_are_refused(self):
+        meta = dict(device="meta", dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="no kernel for meta"):
+            rmsnorm_kernel(torch.empty(4, 64, **meta),
+                           torch.empty(64, **meta))
+        with pytest.raises(ValueError, match="no kernel for meta"):
+            dkern.decode_attention_kernel(
+                torch.empty(1, 4, 64, **meta), torch.empty(1, 8, 2, 64, **meta),
+                torch.empty(1, 8, 2, 64, **meta),
+                torch.empty(1, dtype=torch.int32, device="meta"))
+        with pytest.raises(ValueError, match="no kernel for meta"):
+            fkern.flash_attention_kernel(torch.empty(1, 4, 8, 64, **meta),
+                                         torch.empty(1, 2, 8, 64, **meta),
+                                         torch.empty(1, 2, 8, 64, **meta))

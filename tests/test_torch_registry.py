@@ -45,7 +45,8 @@ class TestFitBlock:
 
 class TestRegistry:
     def test_builtin_ops_registered(self):
-        assert set(api.ops()) == {"compact_pack"}
+        assert set(api.ops()) == {"compact_pack", "rmsnorm", "decode_attn",
+                                  "paged_attn", "flash_attn"}
 
     def test_register_rejects_default_outside_candidates(self):
         bad = api.TunableOp(
@@ -73,7 +74,7 @@ class TestRegistry:
 
     def test_every_grid_point_matches_ref(self):
         op = api.get_op("compact_pack")
-        args, kwargs = op.example(True)
+        args, kwargs = op.example(True, device="cpu")
         ref = op.ref(*args, **kwargs)
         for g in api.clamped_axes(op, *args, **kwargs)["block_chunks"]:
             out = op.run(op.clamp({"block_chunks": g}, *args, **kwargs),
@@ -116,7 +117,7 @@ class TestTunedCache:
         tuned.invalidate_memo()
         assert tuned.lookup("compact_pack", key) is None
         op = api.get_op("compact_pack")
-        args, kwargs = op.example(True)
+        args, kwargs = op.example(True, device="cpu")
         assert api.resolve_point(op, *args, **kwargs) == {"block_chunks": 1}
 
     def test_corrupt_file_is_clean_miss(self, tuned_dir):
@@ -129,7 +130,7 @@ class TestTunedCache:
         and a cached point too large for the plan clamps instead of
         failing; the output never changes (an exact axis)."""
         op = api.get_op("compact_pack")
-        args, kwargs = op.example(True)
+        args, kwargs = op.example(True, device="cpu")
         tuned.store("compact_pack", op.shape_key(*args, **kwargs),
                     {"block_chunks": 16}, objective_us=1.0, evaluations=1)
         assert api.resolve_point(op, *args, **kwargs) == {"block_chunks": 16}
