@@ -7,7 +7,10 @@
 Needs one CUDA card and ``nvcc``. Phases, each reported on its own lines:
 
 1. the card: ``nvidia-smi`` name and power limit, and torch's device name;
-2. build: every kernel under ``src/repro_torch/kernels/csrc`` (setup time);
+2. build: every kernel under ``src/repro_torch/kernels/csrc`` (setup time),
+   with each ``flash_attn`` instantiation's registers and spills from
+   ``ptxas -v`` and its ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) counts
+   from ``cuobjdump -sass``, both required in every bf16 instantiation;
 3. each kernel against its plain PyTorch version on the card: both
    ``compact_pack`` kernels bit for bit (``torch.equal`` on the bits) over
    the plan x ``block_chunks`` grid, the keep fractions of the fused filter,
@@ -15,7 +18,8 @@ Needs one CUDA card and ``nvcc``. Phases, each reported on its own lines:
    ``paged_attn`` and ``flash_attn`` within their registry ``tol`` and
    within ``ROW_REL_BAR`` (each output row against its own scale) over
    GQA groups 1/2/4, head_dim 64/128, bf16 and f32, causal / windowed /
-   non-causal masks, ragged lengths (0 included) and every clamped
+   non-causal masks, ragged lengths (0 included), flash at S 1024, 1000
+   and 77 over two sequences, and every clamped
    candidate of each axis, exact axes bit-equal across their candidates,
    and a planted fault in each attention kernel's inputs that the bar
    must reject;
@@ -51,6 +55,7 @@ import functools
 import importlib
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -227,10 +232,91 @@ def phase_device():
 
 
 def phase_build():
+    """Every kernel, one ``nvcc`` per source, all at once; beside them a
+    second compile of ``flash_attn.cu`` with ``-Xptxas -v`` for its
+    registers and spills. Returns the libraries."""
     t0 = time.perf_counter()
-    libs = build.build_all()
+    src = os.path.join(ROOT, "src/repro_torch/kernels/csrc/flash_attn.cu")
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_ptxas_")
+    ptxas = subprocess.Popen(
+        [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         os.path.join(scratch, "flash_attn_v.so"), src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        libs = build.build_all()
+        log = ptxas.communicate(timeout=900)[0]
+    finally:
+        if ptxas.poll() is None:
+            ptxas.kill()
+        shutil.rmtree(scratch, ignore_errors=True)
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0} s "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})")
+    assert ptxas.returncode == 0, log
+    print_ptxas(log)
+    print_sass_counts(str(libs["flash_attn"]))
+    return libs
+
+
+def demangle(names):
+    tool = shutil.which("c++filt")
+    if not tool or not names:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True).stdout.splitlines()
+    return out if len(out) == len(names) else list(names)
+
+
+def print_ptxas(log: str) -> None:
+    """Each flash instantiation's registers and spills as ``ptxas -v``
+    reports them (the shared memory is dynamic, the launch plan's), and
+    any warning or numbered performance note."""
+    rows, fn = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            rows.append([fn, "", ""])
+        elif fn and "Used" in line and "registers" in line:
+            rows[-1][1] = line.split(":", 1)[1].strip()
+        elif fn and "spill" in line:
+            rows[-1][2] = line.split(":")[-1].strip()
+        elif re.search(r"warning|\(C\d{4}\)", line):
+            # e.g. C7513: ptxas serialised every wgmma of a kernel
+            print(f"ptxas flash_attn: {line.strip()}")
+    names = demangle([r[0] for r in rows])
+    for name, (_, used, spill) in zip(names, rows):
+        print(f"ptxas flash_attn {name}: {used}; {spill}")
+    assert rows, "ptxas -v printed no entry function"
+
+
+def print_sass_counts(lib: str) -> None:
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions per kernel of
+    ``libflash_attn.so``, by ``cuobjdump -sass``; both must be in every
+    bf16 kernel."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        print("sass flash_attn: cuobjdump not available")
+        return
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+        elif fn:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[fn][op] += len(re.findall(rf"\b{op}\b", line))
+    names = demangle(list(counts))
+    bf16 = 0
+    for name, c in zip(names, counts.values()):
+        print(f"sass flash_attn {name}: HGMMA {c['HGMMA']}, UTMALDG "
+              f"{c['UTMALDG']}")
+        if "flash_bf16_kernel" in name:
+            bf16 += 1
+            assert c["HGMMA"] > 0 and c["UTMALDG"] > 0, (name, c)
+    assert bf16 == 6, f"{bf16} bf16 kernels in the SASS, want 6"
 
 
 def phase_parity(dev):
@@ -667,43 +753,11 @@ def phase_parity_sweep_ops(dev):
                                                   group, page)
                     n_checks += 1
 
-    op = api.get_op("flash_attn")
-    b, s = 2, 1024
-    masks = ((True, 0), (True, 32), (True, 128), (False, 0), (False, 32))
-    for dtype in dtypes:
-        for d in (64, 128):
-            for group in (1, 2, 4):
-                hkv = 2
-                q = randn((b, hkv * group, s, d), dtype)
-                k, v = randn((b, hkv, s, d), dtype), randn((b, hkv, s, d),
-                                                           dtype)
-                axes = api.clamped_axes(op, q, k, v)
-                for causal, window in masks:
-                    kw = {"causal": causal, "window": window}
-                    want = op.ref(q, k, v, **kw)
-                    for bk in axes["block_k"]:
-                        outs = []
-                        for bq in axes["block_q"]:
-                            got = op.run({"block_q": bq, "block_k": bk},
-                                         q, k, v, **kw)
-                            err, rel = check_close(op, got, want, dtype, d,
-                                                   group, kw, bq, bk)
-                            worst["flash_attn"] = max(worst["flash_attn"],
-                                                      err)
-                            key = f"flash_attn {str(dtype)[6:]}"
-                            worst_rel[key] = max(worst_rel[key], rel)
-                            outs.append(got)
-                            n_checks += 1
-                        assert all(same_bits(o, outs[0]) for o in outs), \
-                            ("flash_attn block_q not exact", dtype, d, group,
-                             kw, bk)
-                if d == 128 and group == 4:
-                    faults[f"flash_attn {str(dtype)[6:]}"] = \
-                        assert_fault_rejected("flash_attn", (q, k, v),
-                                              {"causal": True, "window": 0})
+    n_checks += phase_parity_flash(randn, worst, worst_rel, faults)
     print(f"parity: {n_checks} sweep-op cases (bfloat16, float32; head_dim "
           f"64, 128; GQA groups 1, 2, 4; causal, window 32 and 128, "
-          f"non-causal; lengths 0, 1, 333, 1000, 1024; every clamped "
+          f"non-causal; lengths 0, 1, 333, 1000, 1024; flash at B 2 and S "
+          f"{list(FLASH_SEQS)}; every clamped "
           f"candidate); max |kernel - plain| {json.dumps(worst)} within tol "
           f"(rmsnorm 0.1, attention 0.05); max row error (max |kernel - "
           f"plain| / max |plain| per output row) {json.dumps(worst_rel)} "
@@ -715,6 +769,54 @@ def phase_parity_sweep_ops(dev):
           f"of each row, flash the 64 oldest keys of the last 64 rows) "
           f"rejected by the row bar, (max abs err, max row error): "
           f"{json.dumps(faults)}")
+
+
+FLASH_SEQS = (1024, 1000, 77)   # 1000 and 77: ragged tiles, no divisor
+FLASH_MASKS = ((True, 0), (True, 32), (True, 128), (False, 0), (False, 32))
+
+
+def phase_parity_flash(randn, worst, worst_rel, faults) -> int:
+    """``flash_attn`` against its plain version at B = 2 (so the kernel
+    crosses head and sequence boundaries) for S 1024, 1000 and 77, over
+    every mask and every clamped candidate; ``block_q`` bit-exact, and the
+    planted fault rejected at every S. Returns the number of checks."""
+    op = api.get_op("flash_attn")
+    n_checks = 0
+    for s in FLASH_SEQS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for d in (64, 128):
+                for group in (1, 2, 4):
+                    hkv = 2
+                    q = randn((2, hkv * group, s, d), dtype)
+                    k, v = randn((2, hkv, s, d), dtype), \
+                        randn((2, hkv, s, d), dtype)
+                    axes = api.clamped_axes(op, q, k, v)
+                    for causal, window in FLASH_MASKS:
+                        kw = {"causal": causal, "window": window}
+                        want = op.ref(q, k, v, **kw)
+                        for bk in axes["block_k"]:
+                            outs = []
+                            for bq in axes["block_q"]:
+                                got = op.run({"block_q": bq, "block_k": bk},
+                                             q, k, v, **kw)
+                                err, rel = check_close(op, got, want, dtype,
+                                                       s, d, group, kw, bq,
+                                                       bk)
+                                worst["flash_attn"] = max(
+                                    worst["flash_attn"], err)
+                                key = f"flash_attn {str(dtype)[6:]}"
+                                worst_rel[key] = max(worst_rel[key], rel)
+                                outs.append(got)
+                                n_checks += 1
+                            assert all(same_bits(o, outs[0]) for o in outs), \
+                                ("flash_attn block_q not exact", dtype, s, d,
+                                 group, kw, bk)
+                    if d == 128 and group == 4:
+                        faults[f"flash_attn {str(dtype)[6:]} S={s}"] = \
+                            assert_fault_rejected(
+                                "flash_attn", (q, k, v),
+                                {"causal": True, "window": 0})
+    return n_checks
 
 
 def valid_pairs(s: int, causal: bool, window: int) -> int:

@@ -4,16 +4,22 @@ Hopper.
 The kernels are hand-written CUDA C++ for sm_90a in
 ``kernels/csrc/flash_attn.cu`` (design notes and bound there), built by
 ``kernels/build.py`` and called through ``ctypes``: bf16 runs on the
-tensor cores (``mma.sync``), float32 on the CUDA cores. The TPU kernel's
-sequential kv grid axis is a loop inside each CTA; a CTA takes
-``block_q`` query rows of one (sequence, head) and walks the keys in tiles
-of ``block_k``.
+tensor cores (``wgmma``, fed by TMA from a producer warpgroup), float32 on
+the CUDA cores. The TPU kernel's sequential kv grid axis is a loop inside
+each CTA; a CTA takes ``block_q`` query rows of one (sequence, head) and
+walks the keys in tiles of ``block_k``.
 
-``block_k`` is the tile the online softmax rescales per, held in shared
-memory and, for bf16, as a 16 x block_k score tile in each warp's
-registers; the card takes 32, 64 or 128 (the TPU's 512-wide tiles were
-sized for 16 MB of VMEM). ``block_q`` keeps the TPU's values: the CTA walks
-them as 64-row sub-tiles, so it stays an exact axis.
+``block_k`` is the tile the online softmax rescales per, held in a ring of
+shared stages and, for bf16, as a 64 x block_k score tile in each consumer
+warpgroup's registers; the card takes 32, 64 or 128 (the wgmma widths; the
+TPU's 512-wide tiles were sized for 16 MB of VMEM). ``block_q`` keeps the
+TPU's values: the bf16 CTA walks its rows as 64-row warpgroup tiles at
+multiples of 64, the f32 CTA as 32-row sub-tiles, so it stays an exact
+axis.
+
+``launch_plan`` is the launch the wrapper hands the C entry point: threads,
+ring stages, dynamic shared memory and grid. The entry point refuses a
+plan that does not fit the kernel.
 
 ``flash_attention_kernel`` launches the kernel for CUDA tensors and counts
 the launch in ``LAUNCHES``; for CPU tensors it runs the plain PyTorch
@@ -24,8 +30,9 @@ tensor to the plain version: what the kernel does not take, it refuses.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -36,6 +43,47 @@ DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 64
 KERNEL_BLOCK_K = (32, 64, 128)     # kv tiles the kernel is built for
 HEAD_DIMS = (64, 128)
+
+# the bf16 kernel: a producer warpgroup and two consumer warpgroups of 64
+# query rows each; K/V stages of block_k rows in a ring of at most
+# MAX_STAGES, within the shared memory one block may use (H100)
+WG_ROWS = 64
+CONSUMERS = 2
+BF16_THREADS = 128 * (1 + CONSUMERS)
+F32_THREADS = 128
+MAX_STAGES = 4
+SMEM_ALIGN = 1024          # the 128-byte swizzle's period
+SMEM_LIMIT = 232448
+MAX_GRID_Y = 65535         # the grid's second axis runs over B * H
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    threads: int
+    stages: int
+    smem: int              # dynamic shared memory, bytes
+    grid: Tuple[int, int]  # (query blocks, B * H)
+
+
+def bf16_smem_bytes(d: int, block_k: int, stages: int) -> int:
+    """Alignment slack, both consumers' query rows, the K/V ring and its
+    2 * stages + 2 mbarriers (``bf16_smem_bytes`` in the source)."""
+    return (SMEM_ALIGN + CONSUMERS * WG_ROWS * d * 2
+            + stages * 2 * block_k * d * 2 + 8 * (2 * stages + 2))
+
+
+def launch_plan(b: int, h: int, s: int, d: int, block_q: int, block_k: int,
+                code: int) -> LaunchPlan:
+    """The launch of one call; ``code`` is the dtype code (1 bf16)."""
+    grid = (-(-s // block_q), b * h)
+    if code != build.DTYPE_CODES["bfloat16"]:
+        return LaunchPlan(F32_THREADS, 1, 2 * block_k * d * 4, grid)
+    stages = MAX_STAGES
+    while stages > 2 and bf16_smem_bytes(d, block_k, stages) > SMEM_LIMIT:
+        stages -= 1
+    return LaunchPlan(BF16_THREADS, stages,
+                      bf16_smem_bytes(d, block_k, stages), grid)
+
 
 # kernel launches since the last reset
 LAUNCHES: Dict[str, int] = {"flash_attn": 0}
@@ -49,7 +97,7 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attn")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attn_launch.argtypes = [ptr] * 4 + [i32] * 10 + [ptr]
+    lib.flash_attn_launch.argtypes = [ptr] * 4 + [i32] * 14 + [ptr]
     lib.flash_attn_launch.restype = ctypes.c_int
     return lib
 
@@ -66,6 +114,9 @@ def check_operands(q, k, v, block_q: int, block_k: int) -> int:
     if k.shape[0] != b or k.shape[2] != s or k.shape[3] != d or h % hkv:
         raise ValueError(f"flash_attn: q {tuple(q.shape)} does not fit k/v "
                          f"{tuple(k.shape)}")
+    if b * h > MAX_GRID_Y:
+        raise ValueError(f"flash_attn: B * H = {b * h} exceeds the grid's "
+                         f"{MAX_GRID_Y} (head, sequence) blocks")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attn: head_dim {d} not in {HEAD_DIMS}")
     if block_k not in KERNEL_BLOCK_K:
@@ -97,6 +148,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     b, h, s, d = q.shape
     bq, bk = min(int(block_q), s), int(block_k)
     code = check_operands(q, k, v, bq, bk)
+    plan = launch_plan(b, h, s, d, bq, bk, code)
     out = torch.empty_like(q)
     lib = _lib()
     with torch.cuda.device(q.device):
@@ -104,7 +156,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         err = lib.flash_attn_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
             k.shape[1], s, d, int(bool(causal)), int(window), bq, bk, code,
-            stream)
+            plan.threads, plan.stages, plan.smem, plan.grid[0], stream)
     build.raise_on(err, "flash_attn")
     LAUNCHES["flash_attn"] += 1
     return out

@@ -3,8 +3,9 @@
 ``block_q``/``block_k`` default to the tuned point for this (shape,
 dtype, device-kind) cell when one is cached, else the deterministic
 default. Explicit values override; every point is clamped to the sequence
-extent so a point tuned on a long shape degrades to a divisor on a
-shorter one.
+extent: ``block_q`` to a divisor, as on the TPU, so a point tuned on a
+long shape degrades deterministically on a shorter one; ``block_k`` to a
+kv tile the card's kernel takes, since the kernel masks a ragged end.
 
 ``block_q`` is an exact axis: retiling the query rows never regroups the
 kv reduction, so outputs are bit-identical across its values. ``block_k``
@@ -40,8 +41,12 @@ def _ref(q, k, v, *, causal=True, window=0):
 
 def _clamp(point, q, k, v, **kw):
     s = q.shape[2]
+    # the kernel masks the keys past S, so block_k need not divide S: it
+    # clamps to the smallest kv tile the kernel takes that covers
+    # min(block_k, S) (a divisor of 1000 or 77 would be no tile at all)
+    bk = min(int(point["block_k"]), s)
     return {"block_q": api.fit_block(point["block_q"], s),
-            "block_k": api.fit_block(point["block_k"], s)}
+            "block_k": next((t for t in KERNEL_BLOCK_K if t >= bk), bk)}
 
 
 def _shape_key(q, k, v, **kw):

@@ -194,6 +194,13 @@ class TestSweepKernelChecks:
                      (q.transpose(2, 3), kv, kv, 64, 64)]:
             with pytest.raises(ValueError):
                 fkern.check_operands(*args)
+        # B * H runs over the grid's second axis, at most 65535 blocks
+        wide = torch.zeros(1, 65536, 1, 64, dtype=torch.bfloat16)
+        one = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="exceeds the grid"):
+            fkern.check_operands(wide, one, one, 1, 32)
+        assert fkern.check_operands(wide[:, :65535].contiguous(), one, one,
+                                    1, 32) == 1
 
     def test_devices_without_a_kernel_are_refused(self):
         meta = dict(device="meta", dtype=torch.bfloat16)
