@@ -112,18 +112,34 @@ class TestDecode:
         np.testing.assert_allclose(out[0].numpy(), np.asarray(want)[0],
                                    atol=1e-5)
 
-    @pytest.mark.parametrize("b,hkv,s,block_k,n_sms,want", [
-        (8, 8, 32768, 512, 132, (16, 2048)),    # full width: 1024 CTAs
-        (4, 2, 512, 512, 132, (1, 512)),        # one tile: one range
-        (4, 2, 2048, 128, 132, (16, 128)),      # every tile its own range
-        (1, 1, 1000, 128, 2, (8, 128)),         # ragged last tile
+    @pytest.mark.parametrize("lens,hkv,s,block_k,n_sms,want", [
+        # full width: 192 pieces over 132 CTAs, at most 5 in a row
+        ([2733, 32768, 9846, 19649, 13124, 21244, 30404, 32104], 8, 32768,
+         512, 132, (192, 5, 64, 132)),
+        # fewer tiles than CTAs: one tile a CTA, one piece a row
+        ([512, 256, 0, 100], 2, 512, 512, 132, (8, 1, 1, 8)),
+        # every tile its own CTA; a length <= 0 row walks all S
+        ([2048, 1024, -1, 37], 2, 2048, 128, 132, (82, 16, 16, 82)),
+        # ragged last tile, two CTAs
+        ([1000], 1, 1000, 128, 2, (2, 2, 2, 2)),
+        # one long row at B 1 spreads over every CTA
+        ([32768], 1, 32768, 128, 132, (132, 132, 132, 132)),
     ])
-    def test_split_plan_covers_the_cache(self, b, hkv, s, block_k, n_sms,
+    def test_split_plan_covers_the_cache(self, lens, hkv, s, block_k, n_sms,
                                          want):
-        n_split, split_len = tdecode.split_plan(b, hkv, s, block_k, n_sms)
-        assert (n_split, split_len) == want
-        assert split_len % block_k == 0
-        assert n_split * split_len >= s > (n_split - 1) * split_len
+        """(pieces, most pieces in a row, the partials' bound, busy
+        CTAs); every live position of every row in exactly one piece."""
+        plan = tdecode.work_plan(lens, hkv, s, block_k, n_sms)
+        per_row = {}
+        for p in plan:
+            per_row.setdefault((p.b, p.kvh), []).append((p.lo, p.hi))
+        bound = tdecode.max_pieces(s, block_k, n_sms)
+        assert (len(plan), max(map(len, per_row.values())), bound,
+                len({p.cta for p in plan})) == want
+        for (b, _), spans in per_row.items():
+            live = min(lens[b], s) if lens[b] > 0 else s
+            assert sorted(spans)[0][0] == 0 and sorted(spans)[-1][1] == live
+            assert sum(hi - lo for lo, hi in spans) == live
 
 
 class TestPaged:

@@ -183,6 +183,22 @@ class TestSweepKernelChecks:
             with pytest.raises(ValueError):
                 dkern.check_operands(*bad)
 
+    def test_decode_refuses_an_empty_cache(self):
+        q = torch.zeros(1, 4, 64, dtype=torch.bfloat16)
+        kv = torch.zeros(1, 0, 2, 64, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="must hold a position"):
+            dkern.check_operands(q, kv, kv, torch.zeros(1, dtype=torch.int32))
+
+    def test_decode_launch_plan(self):
+        """block_k clamps to the cache; one CTA per SM; the partials are
+        sized from the shape; a block_k above MAX_BLOCK_K is refused."""
+        assert dkern.launch_plan(32768, 1024, 132) == (1024, 132, 32)
+        assert dkern.launch_plan(100, 512, 132) == (100, 132, 1)
+        assert dkern.launch_plan(32768, 128, 132) == (128, 132, 132)
+        assert dkern.launch_plan(8192, dkern.MAX_BLOCK_K, 132)[0] == 1024
+        with pytest.raises(ValueError, match="above"):
+            dkern.launch_plan(8192, 4096, 132)
+
     def test_flash_checks(self):
         q = torch.zeros(1, 4, 64, 128, dtype=torch.bfloat16)
         kv = torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16)
