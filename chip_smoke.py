@@ -45,7 +45,19 @@ Needs one CUDA card and ``nvcc``. Phases, each reported on its own lines:
    counts; then each op again at its tuned point, at full width (decode
    also bit-equal across two calls) and on its sweep example cell, and each
    kernel timed at its tuned point beside its bound, its plain version and
-   one PyTorch library call.
+   one PyTorch library call;
+7. ``fleet/corpus``: AutoComp as a service over 16 training-corpus tables
+   with ``setup_fleet``'s class mix, fed by five sim-hours of seeded ingest
+   (``CorpusFleet``); the service ticks a ``FleetScheduler`` after each
+   sim-hour under a budget of half the first pool's cost, merging on the
+   card, with a GDPR-style delete submitted before the second tick. Per
+   tick it prints the wall, the merge's stage split and the report, and
+   holds every file written against numpy; then the compacted table with
+   the most tokens goes through ``DataPipeline`` on the card at
+   ``train_4k``'s micro-batch, every batch against numpy;
+8. ``fleet/storm-2k``: ``FleetSpec()``'s 2000 tables for 4 cycles under 12
+   GBHr with retention, as ``benchmarks/bench_fleet.py``'s nightly run, on
+   the host with the default merge (no kernel).
 
 Times are CUDA events around each call, the host's work up to the launch
 included, as a user of the op pays it. Each kernel's entry also carries
@@ -54,7 +66,9 @@ spin kernel, so that the events time the device alone.
 
 The tuned-point cache lives in a fresh temporary directory for the run
 (``REPRO_TORCH_TUNED_DIR``), so no earlier sweep changes a default point.
-It exits non-zero when a phase fails, and prints as its last line
+The kernels line's ``launches`` for the ``compact_pack`` kernels is the
+sum over phases 4 and 7, ``launches_by_path`` each. It exits non-zero when
+a phase fails, and prints as its last line
 ``{"ok": true, "device": {...}}`` only when every phase passed.
 """
 
@@ -64,6 +78,7 @@ import argparse
 import functools
 import importlib
 import json
+import math
 import os
 import re
 import shutil
@@ -72,6 +87,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -79,12 +95,19 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import core as port_core  # noqa: E402
+from repro_torch import data as port_data  # noqa: E402
+from repro_torch import lst as port_lst  # noqa: E402
 from repro_torch.core import (AutoCompPipeline, ComputeCostTrait,  # noqa: E402
                               FileCountReductionTrait, FileEntropyTrait,
                               MoopRanker, RetentionQueue, Scope,
                               StatsCollector, TraitContext)
+from repro_torch.core import act as port_act  # noqa: E402
+from repro_torch.core import fleet as port_fleet  # noqa: E402
+from repro_torch.core import service as port_service  # noqa: E402
 from repro_torch.core.act import Scheduler  # noqa: E402
 from repro_torch.data import packing  # noqa: E402
+from repro_torch.data.pipeline import DataPipeline  # noqa: E402
 from repro_torch.data.shards import (TokenShardWriter, decode_shard,  # noqa: E402
                                      decode_shard_padded)
 from repro_torch.kernels import api, build, tune, tuned  # noqa: E402
@@ -93,6 +116,7 @@ from repro_torch.kernels.compact_pack import ops, ref  # noqa: E402
 from repro_torch.lst import (Catalog, InMemoryStore,  # noqa: E402
                              PredicateDelete, plan_rewrite_delete)
 from repro_torch.lst.compaction import plan_table  # noqa: E402
+from repro_torch.lst import workload as port_workload  # noqa: E402
 from repro_torch.lst.workload import SimClock  # noqa: E402
 from repro_torch.kernels.paged_attn import tuned_page_size  # noqa: E402
 
@@ -125,6 +149,18 @@ ROW_REL_BAR = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 GRANITE = {"d_model": 4096, "heads": 32, "kv_heads": 8, "head_dim": 128}
 DEFAULTS = {"shards": 1024, "commits": 8, "tokens_per_shard": 262_000,
             "target_mib": 512, "selectivity": 0.05, "seed": 0}
+# fleet/corpus: 16 tables; five sim-hours, since a table reads as bursty
+# only when its busiest hour holds 3x its mean hourly writes, which needs
+# more than three whole hours of history; the one cut of scale: every
+# stream's files per write times FLEET_FACTOR, so the fleet ingests
+# 1.0-1.5 GiB of 1 MiB shards
+FLEET_TABLES, FLEET_HOURS, FLEET_FACTOR = 16, 5, 0.3
+# train_4k (src/repro/configs/shapes.py): seq 4096, global batch 256 over
+# 8 microbatches
+TRAIN_4K_SEQ, TRAIN_4K_MICROBATCH = 4096, 256 // 8
+# fleet/storm-2k: bench_fleet.py's nightly run (--tables 2000 --cycles 4
+# --budget 12 --retention)
+STORM_CYCLES, STORM_BUDGET_GBHR = 4, 12.0
 
 
 def parse_args():
@@ -546,19 +582,12 @@ def phase_main_path(args, dev):
 
     want_dropped = valid_rows = 0
     for task in tasks:
-        payloads = [decode_shard_padded(before[f.path]) for f in task.inputs]
-        rows = np.concatenate(payloads).reshape(-1, CHUNK_COLS)
-        valid = np.zeros(rows.shape[0], bool)
-        row0 = 0
-        for f, p in zip(task.inputs, payloads):
-            valid[row0: row0 + -(-f.num_rows // CHUNK_COLS)] = True
-            row0 += p.shape[0] // CHUNK_COLS
-        drop = drop_rows(rows)
+        want, dropped, valid = rows_after_delete(
+            [(f, before[f.path]) for f in task.inputs], drop_rows)
         got = decode_shard(store.get(output_for(table, task.task_id).path))
-        assert np.array_equal(got, rows[valid & ~drop].reshape(-1)), \
-            task.task_id
-        want_dropped += int((valid & drop).sum())
-        valid_rows += int(valid.sum())
+        assert np.array_equal(got, want), task.task_id
+        want_dropped += dropped
+        valid_rows += valid
     print(f"delete: files {len(before)} -> {len(table.current_files())}, "
           f"rows_dropped {act.rows_dropped} of {valid_rows} content rows "
           f"(selectivity {act.rows_dropped / valid_rows}, asked "
@@ -1122,6 +1151,454 @@ def phase_full_width_times(cells, launches, errs, reps):
     return results
 
 
+# ---------------------------------------------------------------- the fleet
+def fleet_lib(core, act, fleet, service, lst, workload, data):
+    """The modules the fleet phases run on: the port's in this script
+    (``PORT``); the parity tests pass the JAX package's."""
+    return types.SimpleNamespace(core=core, act=act, fleet=fleet,
+                                 service=service, lst=lst, wl=workload,
+                                 data=data)
+
+
+PORT = fleet_lib(port_core, port_act, port_fleet, port_service, port_lst,
+                 port_workload, port_data)
+
+
+def corpus_streams(wl, fspec, rng, namespace: str = "train"):
+    """``setup_fleet``'s class mix over ``fspec.n_tables`` corpus tables
+    (the same seeded shuffle, ``src/repro/lst/workload.py:235-241``) and
+    each class's stream (:258-273)."""
+    n = fspec.n_tables
+    kinds = (["append_storm"] * int(round(n * fspec.storm_fraction))
+             + ["interactive"] * int(round(n * fspec.bursty_fraction))
+             + ["cold"] * int(round(n * fspec.cold_fraction)))
+    kinds += ["dashboard"] * (n - len(kinds))
+    rng.shuffle(kinds)
+    streams = []
+    for i, kind in enumerate(kinds):
+        kw = dict(kind=kind, table=f"corpus{i:02d}", namespace=namespace)
+        if kind == "append_storm":
+            st = wl.StreamSpec(**kw, reads_per_hour=2.0,
+                               writes_per_hour=fspec.storm_writes_per_hour,
+                               files_per_write=fspec.storm_files_per_write)
+        elif kind == "interactive":
+            st = wl.StreamSpec(**kw, reads_per_hour=6.0, writes_per_hour=2.0)
+        elif kind == "cold":
+            st = wl.StreamSpec(**kw, reads_per_hour=0.2, writes_per_hour=0.1,
+                               files_per_write=(1, 4))
+        else:
+            st = wl.StreamSpec(**kw, reads_per_hour=6.0, writes_per_hour=1.0)
+        streams.append(st)
+    return streams
+
+
+def intensity(kind: str, hour: float, rng) -> float:
+    """``WorkloadGenerator._intensity`` for the fleet's four stream kinds,
+    drawing from the same generator in the same place."""
+    if kind == "dashboard":
+        return 1.0 + 0.5 * math.sin(2 * math.pi * hour / 24.0)
+    if kind == "interactive":
+        return 3.0 if rng.rand() < 0.2 else 0.3
+    return 1.0
+
+
+class CorpusFleet:
+    """``fleet/corpus``: AutoComp as a service over training-corpus
+    tables. ``n_tables`` token-shard tables take ``setup_fleet``'s class
+    mix and streams; each sim-hour of ingest draws reads and writes as
+    ``WorkloadGenerator.run_hour`` does (4 substeps, Poisson counts from
+    one ``RandomState(seed)``), writes ``factor`` times the stream's files
+    per write as shards of ``tokens_per_shard`` zipf tokens, and records
+    every read and write as a ``QueryEvent`` in the tracker the fleet
+    classifies from. An ``AutoCompService(mode="both")`` ticks a
+    ``FleetScheduler`` whose class pipelines merge through ``merge_fn``."""
+
+    def __init__(self, lib, merge_fn, n_tables: int, tokens_per_shard: int,
+                 factor: float, seed: int, selectivity: float) -> None:
+        wl = lib.wl
+        self.lib = lib
+        self.fspec = wl.FleetSpec(n_tables=n_tables, seed=seed,
+                                  gdpr_selectivity=selectivity)
+        self.tokens_per_shard = tokens_per_shard
+        self.factor = factor
+        self.clock = wl.SimClock()
+        self.store = lib.lst.InMemoryStore()
+        self.catalog = lib.lst.Catalog(self.store, now_fn=self.clock.now)
+        self.rng = np.random.RandomState(seed)
+        self.cost = wl.CostModel()
+        self.streams = corpus_streams(wl, self.fspec, self.rng)
+        self.writers = {}
+        for i, st in enumerate(self.streams):
+            t = self.catalog.create_table(
+                st.namespace, st.table,
+                properties={"conflict_granularity": "table"})
+            t.now_fn = self.clock.now
+            self.writers[st.table] = lib.data.TokenShardWriter(
+                t, vocab=32000, seed=seed + i)
+        self.tracker = wl.ActivityTracker(now_fn=self.clock.now)
+        self.ingest_s = []
+
+        def pipeline(profile, activity=None, stats=None):
+            return lib.fleet.build_class_pipeline(
+                profile, activity, stats=stats,
+                scheduler=lib.act.Scheduler(profile.target_file_mb * MIB,
+                                            merge_fn=merge_fn))
+        self.fleet = lib.fleet.FleetScheduler(
+            self.catalog, budget_gbhr=0.0, activity=self.tracker,
+            pipeline_factory=pipeline)
+        self.service = lib.service.AutoCompService(
+            self.catalog, self.fleet,
+            lib.service.ServiceConfig(interval_hours=1.0, mode="both"),
+            now_fn=self.clock.now)
+
+    def ingest_hour(self, substeps: int = 4) -> None:
+        """One sim-hour of reads and writes, recorded in the tracker."""
+        out = []
+        for _ in range(substeps):
+            self.clock.advance(1.0 / substeps)
+            now = self.clock.now()
+            for st in self.streams:
+                table = self.catalog.get_table(st.namespace, st.table)
+                inten = intensity(st.kind, now, self.rng)
+                n_reads = self.rng.poisson(st.reads_per_hour * inten
+                                           / substeps)
+                n_writes = self.rng.poisson(st.writes_per_hour * inten
+                                            / substeps)
+                for _ in range(n_reads):
+                    files = table.scan()
+                    out.append(self.lib.wl.QueryEvent(
+                        now, "read", table.table_id,
+                        latency=self.cost.read_latency_s(files),
+                        files_scanned=len(files)))
+                for _ in range(n_writes):
+                    n = max(1, round(self.rng.randint(*st.files_per_write)
+                                     * self.factor))
+                    self.writers[st.table].trickle_append(
+                        n, self.tokens_per_shard)
+                    self.catalog.notify_write(table)
+                    out.append(self.lib.wl.QueryEvent(
+                        now, "write", table.table_id, files_written=n))
+        self.tracker.record(out)
+
+    def pooled_cost(self) -> float:
+        """Sum of ``compute_cost`` over the candidates a fleet cycle would
+        pool now: classify and propose as ``FleetScheduler.run_cycle``
+        does, select nothing."""
+        fleet = self.fleet
+        tables = self.catalog.tables()
+        groups = {}
+        for t in sorted(tables, key=lambda t: t.table_id):
+            groups.setdefault(fleet.classify(t), []).append(t)
+        pool = []
+        for cls in sorted(groups):
+            cands = fleet.pipelines[cls].propose(self.catalog,
+                                                 tables=groups[cls])
+            cap = fleet.profiles[cls].top_k
+            pool += cands if cap is None else cands[:cap]
+        pool += fleet.retention.propose(tables, activity=self.tracker)
+        return sum(c.traits["compute_cost"] for c in pool)
+
+    def gdpr_tables(self) -> tuple:
+        ids = sorted(t.table_id for t in self.catalog.tables())
+        return tuple(ids[::max(1, self.fspec.gdpr_table_stride)])
+
+    def submit_gdpr(self, drop_rows) -> None:
+        self.fleet.submit_delete(self.lib.lst.PredicateDelete(
+            "gdpr-erasure", row_predicate=drop_rows,
+            est_selectivity=self.fspec.gdpr_selectivity,
+            tables=self.gdpr_tables()))
+
+    def run(self, hours: int, drop_rows, tick=None) -> list:
+        """``hours`` sim-hours of ingest, the service ticking after each.
+        The budget is set before the first tick to half the pooled cost;
+        the delete is submitted before the second. ``tick(fn)`` wraps each
+        tick (timing, checks). Returns the reports."""
+        reports = []
+        for hour in range(hours):
+            t0 = time.perf_counter()
+            self.ingest_hour()
+            self.ingest_s.append(time.perf_counter() - t0)
+            if hour == 0:
+                self.fleet.budget_gbhr = 0.5 * self.pooled_cost()
+            if hour == 1:
+                self.submit_gdpr(drop_rows)
+            reports.append(tick(self.service.tick) if tick
+                           else self.service.tick())
+        return reports
+
+
+def rows_after_delete(inputs, drop_rows):
+    """numpy's rewrite-delete of one bin: the rows ``keep & valid``
+    selects from the inputs' padded payloads, the count of content rows
+    the predicate drops and the count of content rows. ``inputs``:
+    (DataFile, raw bytes) pairs."""
+    payloads = [decode_shard_padded(raw) for _, raw in inputs]
+    rows = np.concatenate(payloads).reshape(-1, CHUNK_COLS)
+    valid = np.zeros(rows.shape[0], bool)
+    row0 = 0
+    for (f, _), p in zip(inputs, payloads):
+        valid[row0: row0 + -(-f.num_rows // CHUNK_COLS)] = True
+        row0 += p.shape[0] // CHUNK_COLS
+    drop = drop_rows(rows)
+    return rows[valid & ~drop].reshape(-1), int((valid & drop).sum()), \
+        int(valid.sum())
+
+
+class MergeCheck:
+    """Wraps a merge: keeps each merge's input bytes, output bytes and
+    result, so that after the tick every file a cycle wrote is held
+    against numpy. It records only; the merge is ``merge_fn``'s."""
+
+    def __init__(self, merge_fn):
+        self.merge_fn = merge_fn
+        self.records = []
+
+    def __call__(self, table, task, out_path, filter_fn=None,
+                 fused_filter=True):
+        inputs = [(f, table.store.get(f.path)) for f in task.inputs]
+        res = self.merge_fn(table, task, out_path, filter_fn=filter_fn,
+                            fused_filter=fused_filter)
+        self.records.append((inputs, table.store.get(out_path),
+                             filter_fn is not None, res))
+        return res
+
+    def verify(self, drop_rows) -> dict:
+        """Compactions hold numpy's concatenation of their inputs;
+        rewrite-deletes numpy's ``keep & valid`` rows, with the merge's
+        ``rows_dropped`` equal to numpy's count. Clears the records."""
+        n = {"compactions": 0, "rewrite_deletes": 0, "rows_dropped": 0,
+             "bytes_in": 0}
+        for inputs, out_raw, filtered, res in self.records:
+            got = decode_shard(out_raw)
+            n["bytes_in"] += sum(len(raw) for _, raw in inputs)
+            if filtered:
+                want, dropped, _ = rows_after_delete(inputs, drop_rows)
+                assert res[1] == dropped, (res[1], dropped)
+                n["rewrite_deletes"] += 1
+                n["rows_dropped"] += dropped
+            else:
+                want = np.concatenate([decode_shard(raw)
+                                       for _, raw in inputs])
+                n["compactions"] += 1
+            assert np.array_equal(got, want), [f.path for f, _ in inputs]
+        self.records = []
+        return n
+
+
+FLEET_CLASSES = ("append-storm", "bursty", "cold", "steady")
+
+
+def phase_corpus_fleet(args, dev):
+    """Phase 7: ``fleet/corpus`` on the card, every merge checked."""
+    check = MergeCheck(functools.partial(packing.merge_shards_fn,
+                                         device=dev))
+    drop_rows = gdpr_rows(args.selectivity)
+    cf = CorpusFleet(PORT, check, FLEET_TABLES, args.tokens_per_shard,
+                     FLEET_FACTOR, args.seed, args.selectivity)
+    print(f"fleet/corpus: {FLEET_TABLES} tables, streams "
+          f"{json.dumps({s.table: s.kind for s in cf.streams})}; shards of "
+          f"{args.tokens_per_shard} tokens, {FLEET_FACTOR} x each "
+          f"stream's files per write; {FLEET_HOURS} sim-hours; GDPR "
+          f"delete on {list(cf.gdpr_tables())} at selectivity "
+          f"{args.selectivity}")
+    walls = []
+    seen = set()
+
+    def tick(fn):
+        if not walls:
+            print(f"fleet/corpus budget: {cf.fleet.budget_gbhr} GBHr, half "
+                  f"the pooled compute_cost before the first tick")
+        packing.reset_stage_seconds()
+        t1 = time.perf_counter()
+        rep = fn()
+        sync(dev)
+        wall = time.perf_counter() - t1
+        assert rep is not None, "the service did not tick"
+        split = dict(packing.STAGE_SECONDS)
+        split["outside_merge"] = wall - sum(split.values())
+        n = check.verify(drop_rows)
+        assert rep.act.failures == 0 and rep.act.conflicts == 0
+        assert rep.spent_gbhr <= rep.budget_gbhr, (rep.spent_gbhr,
+                                                   rep.budget_gbhr)
+        assert rep.rows_dropped == n["rows_dropped"], (rep.rows_dropped, n)
+        seen.update(rep.class_counts)
+        tables = cf.catalog.tables()
+        files = sum(t.file_count() for t in tables)
+        byts = sum(t.total_bytes() for t in tables)
+        walls.append(wall)
+        print(f"fleet/corpus tick {len(walls)} (sim-hour {cf.clock.now()}): "
+              f"ingest {cf.ingest_s[-1]} s; wall {wall} s; split "
+              f"(s) {json.dumps(split)}; class_counts "
+              f"{json.dumps(rep.class_counts)}, n_candidates "
+              f"{rep.n_candidates}, n_selected {rep.n_selected}, "
+              f"n_delete_candidates {rep.n_delete_candidates}, spent_gbhr "
+              f"{rep.spent_gbhr} of budget_gbhr {rep.budget_gbhr}, "
+              f"max_skip_cycles {rep.max_skip_cycles}, files_removed "
+              f"{rep.files_removed}, rows_dropped {rep.rows_dropped}; "
+              f"merges checked {json.dumps(n)}; fleet now {files} files, "
+              f"{byts} bytes")
+        return rep
+
+    kern.reset_launches()
+    reports = cf.run(FLEET_HOURS, drop_rows, tick)
+    launches = dict(kern.LAUNCHES)
+    # the delete's shares still queued, priced now: select_budget skips a
+    # candidate that alone costs more than the budget, in every cycle
+    queue = cf.fleet.retention
+    pending = {c.table.table_id: c.traits["compute_cost"] for c in
+               queue.propose(queue.target_tables(cf.catalog))}
+    total = sum(t.total_bytes() for t in cf.catalog.tables())
+    print(f"fleet/corpus: {sum(r.files_removed for r in reports)} files "
+          f"removed, {sum(r.rows_dropped for r in reports)} rows dropped "
+          f"over {len(reports)} ticks; fleet holds {total} bytes "
+          f"({total / (1 << 30)} GiB); classes seen {sorted(seen)}; "
+          f"delete still queued on (table: compute_cost) "
+          f"{json.dumps(pending)} against budget {cf.fleet.budget_gbhr}; "
+          f"launches {json.dumps(launches)}")
+    assert sorted(seen) == sorted(FLEET_CLASSES), sorted(seen)
+    assert sum(r.rows_dropped for r in reports) > 0
+    assert all(cost > cf.fleet.budget_gbhr for cost in pending.values()), \
+        pending
+    phase_corpus_pipeline(args, dev, cf)
+    return launches
+
+
+def phase_corpus_pipeline(args, dev, cf):
+    """The compacted table with the most tokens through ``DataPipeline``
+    on the card at ``train_4k``'s micro-batch, each batch against numpy's
+    packing and permutation of the same stream, plain and prefetching."""
+    batch, seq = TRAIN_4K_MICROBATCH, TRAIN_4K_SEQ
+    table = max(cf.catalog.tables(),
+                key=lambda t: (sum(f.num_rows for f in t.current_files()),
+                               t.table_id))
+    files = sorted((f for f in table.current_files()
+                    if f.path.endswith(".toks")), key=lambda f: f.path)
+    stream = np.concatenate([decode_shard(cf.store.get(f.path))
+                             for f in files])
+    per = batch * (seq + 1)
+    slabs = stream[: stream.shape[0] // per * per].reshape(-1, batch,
+                                                           seq + 1)
+    order = np.random.RandomState(args.seed).permutation(len(slabs))
+    for prefetch in (False, True):
+        pipe = DataPipeline(table, batch, seq, seed=args.seed, device=dev)
+        it = pipe.prefetching_batches() if prefetch else pipe.batches()
+        t0 = time.perf_counter()
+        n = 0
+        for b in it:
+            assert n < len(order), "more batches than numpy's packing"
+            slab = slabs[order[n]]
+            for key, want in (("tokens", slab[:, :-1]),
+                              ("labels", slab[:, 1:])):
+                got = b[key]
+                assert got.device == dev and got.dtype == torch.int32 \
+                    and tuple(got.shape) == (batch, seq), (key, got.shape)
+                assert np.array_equal(got.cpu().numpy(), want), (key, n)
+            n += 1
+        wall = time.perf_counter() - t0
+        assert n == len(slabs), (n, len(slabs))
+        path = "prefetching" if prefetch else "plain"
+        print(f"fleet/corpus pipeline ({path}): {table.table_id}, "
+              f"{len(files)} files, {stream.shape[0]} tokens -> {n} "
+              f"batches of ({batch}, {seq}) on {dev}, each equal to "
+              f"numpy's; wall {wall} s (checks included); "
+              f"plan_time_s {pipe.plan_time_s}, read_time_s "
+              f"{pipe.read_time_s}, h2d {pipe.h2d_time_s} s")
+
+
+def make_fleet(lib, fspec, budget_gbhr: float, warmup_hours: int = 1,
+               starvation_cycles: int = 4):
+    """``benchmarks/workload_sim.py::make_fleet``: the storm-mix fleet
+    after ``warmup_hours`` of ingest, its tracker wired into the
+    scheduler."""
+    wl = lib.wl
+    clock = wl.SimClock()
+    store = lib.lst.InMemoryStore()
+    catalog = lib.lst.Catalog(store, now_fn=clock.now)
+    gen = wl.WorkloadGenerator(catalog, wl.WorkloadSpec(seed=fspec.seed),
+                               clock)
+    gen.setup_fleet(fspec)
+    tracker = wl.ActivityTracker(now_fn=clock.now)
+    for _ in range(warmup_hours):
+        tracker.record(gen.run_hour(substeps=1))
+    fleet = lib.fleet.FleetScheduler(catalog, budget_gbhr=budget_gbhr,
+                                     activity=tracker,
+                                     starvation_cycles=starvation_cycles)
+    return clock, catalog, gen, tracker, fleet
+
+
+def submit_retention_ops(lib, fleet, catalog, fspec) -> None:
+    """``benchmarks/bench_fleet.py::submit_retention_ops``: a standing TTL
+    and a one-shot GDPR delete on every ``gdpr_table_stride``-th table,
+    whose predicate hashes the synthetic row id."""
+    fleet.submit_retention(lib.lst.RetentionPolicy(
+        "ttl", max_age_hours=fspec.retention_max_age_hours))
+    stride = max(1, fspec.gdpr_table_stride)
+    tids = sorted(t.table_id for t in catalog.tables())[::stride]
+    sel = fspec.gdpr_selectivity
+
+    def gdpr_ids(rows, task, _s=sel):
+        ids = np.asarray(rows)[:, 0].astype(np.int64)
+        return ((ids * 2654435761) % (1 << 32)) < int(_s * (1 << 32))
+
+    fleet.submit_delete(lib.lst.PredicateDelete(
+        "gdpr-erasure", row_predicate=gdpr_ids, est_selectivity=sel,
+        tables=tuple(tids)))
+
+
+def storm_fleet(lib, fspec, cycles: int, budget_gbhr: float,
+                starvation_cycles: int = 4, cycle=None):
+    """``bench_fleet.py::run_fleet`` with retention: ``cycles`` rounds of
+    one sim-hour of ingest and one fleet cycle. ``cycle(fn)`` wraps each
+    cycle. Returns the fleet, the generator and, per cycle, (report, file
+    count before, file count after)."""
+    _, catalog, gen, tracker, fleet = make_fleet(
+        lib, fspec, budget_gbhr, starvation_cycles=starvation_cycles)
+    submit_retention_ops(lib, fleet, catalog, fspec)
+    per_cycle = []
+    for _ in range(cycles):
+        tracker.record(gen.run_hour(substeps=1))
+        before = gen.total_file_count()
+        rep = cycle(fleet.run_cycle) if cycle else fleet.run_cycle()
+        per_cycle.append((rep, before, gen.total_file_count()))
+    return fleet, gen, per_cycle
+
+
+def phase_storm_fleet(args):
+    """Phase 8: ``fleet/storm-2k``, the control plane at the paper's scale
+    on the host, with the port's default merge."""
+    fspec = port_workload.FleetSpec(seed=args.seed)
+    walls = []
+
+    def cycle(fn):
+        t0 = time.perf_counter()
+        rep = fn()
+        walls.append(time.perf_counter() - t0)
+        return rep
+
+    t0 = time.perf_counter()
+    fleet, gen, per_cycle = storm_fleet(PORT, fspec, STORM_CYCLES,
+                                        STORM_BUDGET_GBHR, cycle=cycle)
+    wall = time.perf_counter() - t0
+    for i, ((rep, before, after), w) in enumerate(zip(per_cycle, walls)):
+        print(f"fleet/storm-2k cycle {i + 1}: wall {w} s; files {before} -> "
+              f"{after}; class_counts {json.dumps(rep.class_counts)}, "
+              f"n_candidates {rep.n_candidates}, n_selected "
+              f"{rep.n_selected}, n_delete_candidates "
+              f"{rep.n_delete_candidates}, spent_gbhr {rep.spent_gbhr} of "
+              f"budget_gbhr {rep.budget_gbhr}, max_skip_cycles "
+              f"{rep.max_skip_cycles}, files_removed {rep.files_removed}, "
+              f"rows_dropped {rep.rows_dropped}, files_dropped "
+              f"{rep.files_dropped}")
+        assert rep.spent_gbhr <= rep.budget_gbhr, (i, rep.spent_gbhr)
+        assert rep.max_skip_cycles <= fleet.starvation_cycles, i
+        assert after < before, (i, before, after)
+    print(f"fleet/storm-2k: {fspec.n_tables} tables, {STORM_CYCLES} "
+          f"cycles under {STORM_BUDGET_GBHR} GBHr with retention; wall "
+          f"{wall} s (setup and ingest included), cycles {sum(walls)} s; "
+          f"totals {json.dumps(fleet.totals())}; files at the end "
+          f"{gen.total_file_count()}")
+
+
 def main() -> int:
     args = parse_args()
     if not torch.cuda.is_available():
@@ -1130,6 +1607,7 @@ def main() -> int:
         return 1
     reduced = {k: getattr(args, k) for k in DEFAULTS
                if getattr(args, k) != DEFAULTS[k]}
+    reduced["fleet/corpus shards per write x"] = FLEET_FACTOR
     print(f"reduced: {json.dumps(reduced)}")
     tuned_dir = tempfile.mkdtemp(prefix="chip_smoke_tuned_")
     os.environ["REPRO_TORCH_TUNED_DIR"] = tuned_dir
@@ -1153,6 +1631,15 @@ def main() -> int:
         phase_example_parity()
         kernels += phase_full_width_times(cells, sweep_counts, errs,
                                           args.reps)
+        del cells
+        fleet_counts = phase_corpus_fleet(args, dev)
+        assert all(n > 0 for n in fleet_counts.values()), fleet_counts
+        for k in kernels:
+            if k["name"] in fleet_counts:
+                k["launches_by_path"] = {"compaction": k["launches"],
+                                         "fleet": fleet_counts[k["name"]]}
+                k["launches"] += fleet_counts[k["name"]]
+        phase_storm_fleet(args)
     finally:
         shutil.rmtree(tuned_dir, ignore_errors=True)
     print(json.dumps({"kernels": kernels}))

@@ -9,9 +9,10 @@ Every phase is a pluggable component (NFR1) and every default implementation
 is deterministic under identical inputs (NFR2). Nothing here knows about
 Iceberg vs. our LST substrate beyond the connector protocol (NFR3).
 
-Ported so far: the single-pool OODA loop, the retention queue and the
-autotuner (``core/autotune.py``, which the kernel sweep drives). The fleet
-scheduler, the service and the triggers are still to port.
+Ported: the single-pool OODA loop, the retention queue, the autotuner
+(``core/autotune.py``, which the kernel sweep and ``tune_profile`` drive),
+the fleet scheduler, the service and its triggers -- every module of the
+JAX package's ``core``.
 """
 
 from repro_torch.core.model import Candidate, CandidateStats, Scope  # noqa: F401
@@ -25,3 +26,7 @@ from repro_torch.core.decide import (  # noqa: F401
 )
 from repro_torch.core.ooda import AutoCompPipeline, CycleReport  # noqa: F401
 from repro_torch.core.retention import RetentionQueue  # noqa: F401
+from repro_torch.core.fleet import (  # noqa: F401
+    ClassProfile, FleetCycleReport, FleetScheduler, classify_table,
+)
+from repro_torch.core.service import AutoCompService  # noqa: F401

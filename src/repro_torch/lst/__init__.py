@@ -5,4 +5,4 @@ from repro_torch.lst.catalog import Catalog, Namespace  # noqa
 from repro_torch.lst.retention import (DeleteRoute, PredicateDelete,  # noqa
                                        RetentionPolicy, execute_file_drops,
                                        plan_rewrite_delete, route_delete)
-from repro_torch.lst.interop import load_table  # noqa
+from repro_torch.lst.interop import load_catalog, load_table  # noqa

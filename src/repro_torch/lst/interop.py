@@ -4,12 +4,13 @@ The system has no weights: its state is table files. ``load_table`` takes
 that state as plain data -- ``DataFile`` fields as dicts and the data
 objects as ``{path: bytes}`` -- so a table written by another
 implementation (for example the JAX package's writers) can be compacted
-here and the results compared file by file.
+here and the results compared file by file. ``load_catalog`` does the same
+for every table of a catalog, so a whole fleet can be carried across.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 from repro_torch.lst.catalog import Catalog
 from repro_torch.lst.files import DataFile
@@ -31,3 +32,18 @@ def load_table(catalog: Catalog, namespace: str, table: str,
         t.store.put(f.path, objects[f.path])
     t.append(data_files)
     return t
+
+
+def load_catalog(catalog: Catalog, tables: Sequence[Mapping]
+                 ) -> List[LogStructuredTable]:
+    """Create one table per entry of ``tables``, each with ``load_table``'s
+    one-commit rule, in the order given.
+
+    tables: one dict per source table with ``namespace``, ``name``,
+        ``partition_spec``, ``properties``, ``files`` (``DataFile`` fields
+        in commit order) and ``objects`` (``{path: bytes}``)
+    """
+    return [load_table(catalog, t["namespace"], t["name"], t["files"],
+                       t["objects"], partition_spec=t["partition_spec"],
+                       properties=t["properties"])
+            for t in tables]
