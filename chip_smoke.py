@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--shards 1024] [--tokens-per-shard 262000]
                           [--target-mib 512] [--selectivity 0.05] [--seed 0]
+                          [--model-batch 16]
 
 Needs one CUDA card and ``nvcc``. Phases, each reported on its own lines:
 
@@ -52,12 +53,26 @@ Needs one CUDA card and ``nvcc``. Phases, each reported on its own lines:
    sim-hour under a budget of half the first pool's cost, merging on the
    card, with a GDPR-style delete submitted before the second tick. Per
    tick it prints the wall, the merge's stage split and the report, and
-   holds every file written against numpy; then the compacted table with
-   the most tokens goes through ``DataPipeline`` on the card at
-   ``train_4k``'s micro-batch, every batch against numpy;
+   the table skipped the most cycles with its queued shares' cost against
+   the budget, and holds every file written against numpy; then the
+   compacted table with the most tokens goes through ``DataPipeline`` on
+   the card at ``train_4k``'s micro-batch, every batch against numpy;
 8. ``fleet/storm-2k``: ``FleetSpec()``'s 2000 tables for 4 cycles under 12
    GBHr with retention, as ``benchmarks/bench_fleet.py``'s nightly run, on
-   the host with the default merge (no kernel).
+   the host with the default merge (no kernel);
+9. ``model/train``: the model's training math, which calls no kernel of
+   the registry (the reference's model calls none of its Pallas kernels):
+   one model per family at its ``smoke_config`` in f32, forward+backward on
+   the card against the CPU (loss, metrics, every gradient leaf); then
+   ``paper-lm-100m`` (``src/repro/configs/paper_lm_100m.py``) at full width
+   in bf16, seq 4096, ``--model-batch`` rows: one forward+backward timed
+   (median of 5 after a warm-up) with its tokens/s, peak memory, TFLOP/s
+   and share of the bf16 peak, one more under ``torch.profiler`` for the
+   device's idle share and time by operator, the loss at init against
+   ln(vocab), every gradient leaf finite and nonzero, and the bf16 loss
+   against f32 on the same weights at batch 1; then ``xlstm-125m`` at full
+   width, batch 2 x 256, and its sLSTM ``autograd.Function`` against plain
+   autograd on the card.
 
 Times are CUDA events around each call, the host's work up to the launch
 included, as a user of the op pays it. Each kernel's entry also carries
@@ -119,6 +134,10 @@ from repro_torch.lst.compaction import plan_table  # noqa: E402
 from repro_torch.lst import workload as port_workload  # noqa: E402
 from repro_torch.lst.workload import SimClock  # noqa: E402
 from repro_torch.kernels.paged_attn import tuned_page_size  # noqa: E402
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from repro_torch.models import transformer as model_tf  # noqa: E402
+from repro_torch.models import xlstm as model_xlstm  # noqa: E402
+from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 
 MIB = 1 << 20
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA's data sheet
@@ -148,7 +167,8 @@ ROW_REL_BAR = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # Granite-3-8B (src/repro/configs/granite_3_8b.py)
 GRANITE = {"d_model": 4096, "heads": 32, "kv_heads": 8, "head_dim": 128}
 DEFAULTS = {"shards": 1024, "commits": 8, "tokens_per_shard": 262_000,
-            "target_mib": 512, "selectivity": 0.05, "seed": 0}
+            "target_mib": 512, "selectivity": 0.05, "seed": 0,
+            "model_batch": 16}
 # fleet/corpus: 16 tables; five sim-hours, since a table reads as bursty
 # only when its busiest hour holds 3x its mean hourly writes, which needs
 # more than three whole hours of history; the one cut of scale: every
@@ -161,6 +181,16 @@ TRAIN_4K_SEQ, TRAIN_4K_MICROBATCH = 4096, 256 // 8
 # fleet/storm-2k: bench_fleet.py's nightly run (--tables 2000 --cycles 4
 # --budget 12 --retention)
 STORM_CYCLES, STORM_BUDGET_GBHR = 4, 12.0
+# model/train: one model per family at its smoke_config (f32, the card
+# against the CPU, within tests/test_torch_models.py's f32 bars), then
+# paper-lm-100m at full width in bf16 at train_4k's seq; the one cut of
+# scale is the micro-batch, from train_4k's 32 (see PERF.md section 4)
+MODEL_FAMILY_ARCHS = ("qwen3-moe-30b-a3b", "granite-3-8b", "minicpm3-4b",
+                      "hymba-1.5b", "hubert-xlarge", "internvl2-2b",
+                      "xlstm-125m")
+MODEL_LOSS_TOL, MODEL_GRAD_TOL, MODEL_GRAD_FLOOR = 2e-6, 3e-5, 1e-6
+MODEL_ARCH, MODEL_REPS = "paper-lm-100m", 5
+XLSTM_BATCH, XLSTM_SEQ = 2, 256
 
 
 def parse_args():
@@ -177,6 +207,10 @@ def parse_args():
                     default=DEFAULTS["selectivity"],
                     help="fraction of 128-token rows the delete matches")
     ap.add_argument("--seed", type=int, default=DEFAULTS["seed"])
+    ap.add_argument("--model-batch", type=int,
+                    default=DEFAULTS["model_batch"],
+                    help="paper-lm-100m's micro-batch at seq 4096 in "
+                         "phase 9 (train_4k's is 32)")
     ap.add_argument("--reps", type=int, default=25,
                     help="timed launches per kernel (median reported)")
     args = ap.parse_args()
@@ -1403,6 +1437,16 @@ def phase_corpus_fleet(args, dev):
           f"{args.selectivity}")
     walls = []
     seen = set()
+    # each cycle's pooled candidates, recorded as decide receives them, so
+    # that each tick can name the table that waits longest and price it
+    pools = []
+    decide = cf.fleet.decide
+
+    def recording_decide(pool):
+        pools.append(list(pool))
+        return decide(pool)
+
+    cf.fleet.decide = recording_decide
 
     def tick(fn):
         if not walls:
@@ -1437,6 +1481,16 @@ def phase_corpus_fleet(args, dev):
               f"{rep.files_removed}, rows_dropped {rep.rows_dropped}; "
               f"merges checked {json.dumps(n)}; fleet now {files} files, "
               f"{byts} bytes")
+        skips = cf.fleet.skip_cycles
+        if skips:
+            tid = max(sorted(skips), key=skips.get)
+            queued = [["delete" if c.delete_route is not None
+                       else "compaction", c.traits["compute_cost"]]
+                      for c in pools[-1] if c.table.table_id == tid]
+            print(f"fleet/corpus tick {len(walls)} starved: {tid} skipped "
+                  f"{skips[tid]} cycles; its queued shares' compute_cost "
+                  f"{json.dumps(queued)} GBHr against budget_gbhr "
+                  f"{rep.budget_gbhr}")
         return rep
 
     kern.reset_launches()
@@ -1599,6 +1653,259 @@ def phase_storm_fleet(args):
           f"{gen.total_file_count()}")
 
 
+# ---------------------------------------------------------------- the model
+def model_batch(cfg, batch: int, seq: int, seed: int, dtype, dev) -> dict:
+    """A train batch of ``input_specs``'s shapes
+    (``src/repro/configs/shapes.py:105-133``) from a numpy seed: tokens and
+    labels, or audio frames with a loss mask, or patches with the text
+    tokens after them; float inputs in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    n = seq - cfg.n_vision_tokens if cfg.frontend == "vit_patches" else seq
+    out = {}
+    if cfg.frontend == "audio_frames":
+        out["frames"] = rng.standard_normal(
+            (batch, seq, model_tf.AUDIO_HIDDEN), dtype=np.float32)
+        out["mask"] = rng.random((batch, seq)) < 0.3
+    else:
+        out["tokens"] = rng.integers(0, cfg.vocab, (batch, n), dtype=np.int32)
+    if cfg.frontend == "vit_patches":
+        out["patches"] = rng.standard_normal(
+            (batch, cfg.n_vision_tokens, model_tf.VIT_HIDDEN),
+            dtype=np.float32)
+    out["labels"] = rng.integers(0, cfg.vocab, (batch, n), dtype=np.int32)
+    return {k: torch.from_numpy(v).to(device=dev, dtype=dtype)
+            if v.dtype == np.float32 else torch.from_numpy(v).to(dev)
+            for k, v in out.items()}
+
+
+def loss_and_grads(cfg, params, batch):
+    """One forward+backward of ``forward(mode="train")``: the loss, the
+    metrics and every leaf's gradient (zeros where the loss does not
+    reach a leaf), in the tree's leaf order."""
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.grad = None
+        t.requires_grad_(True)
+    loss, metrics = model_tf.forward(cfg, params, batch)
+    loss.backward()
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            [torch.zeros_like(t) if t.grad is None else t.grad
+             for t in leaves])
+
+
+def grad_err(got, want) -> float:
+    """The largest leaf error over the f32 bar: <= 1 passes."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        err = float((g - w).abs().max()) if w.numel() else 0.0
+        worst = max(worst, err / (MODEL_GRAD_TOL * scale + MODEL_GRAD_FLOOR))
+    return worst
+
+
+def phase_model_families(seed: int, dev) -> None:
+    """One model per family at its ``smoke_config`` in f32: the port on
+    the card against the port on the CPU, the same weights and batch.
+    Both f32 paths keep TF32 off (PyTorch's default), so the card's
+    products round as f32 products do."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    cpu = torch.device("cpu")
+    for arch in MODEL_FAMILY_ARCHS:
+        cfg = smoke_config(arch)
+        params = tree_map(lambda t: t.float(),
+                          model_tf.init_params(cfg, seed=seed, device=cpu))
+        batch = model_batch(cfg, 2, 16, seed, torch.float32, cpu)
+        loss_c, met_c, g_c = loss_and_grads(cfg, params, batch)
+        on_dev = tree_map(lambda t: t.detach().to(dev), params)
+        loss_d, met_d, g_d = loss_and_grads(
+            cfg, on_dev, {k: v.to(dev) for k, v in batch.items()})
+        assert all(g.device.type == dev.type for g in g_d)
+        lc, ld = float(loss_c), float(loss_d)
+        loss_rel = abs(ld - lc) / max(1.0, abs(lc))
+        met_rel = max(abs(float(met_d[k]) - float(v)) / max(1.0, abs(float(v)))
+                      for k, v in met_c.items())
+        gerr = grad_err(g_d, g_c)
+        print(f"model/{arch} smoke f32, card against CPU: loss {ld} / {lc}, "
+              f"rel err {loss_rel}; metrics {sorted(met_d)} worst rel err "
+              f"{met_rel}; {len(g_d)} gradient leaves, worst err "
+              f"{gerr} of the bar (err / ({MODEL_GRAD_TOL} x scale + "
+              f"{MODEL_GRAD_FLOOR}))")
+        assert sorted(met_d) == sorted(met_c), (arch, sorted(met_d))
+        assert loss_rel <= MODEL_LOSS_TOL and met_rel <= MODEL_LOSS_TOL, \
+            (arch, loss_rel, met_rel)
+        assert gerr <= 1.0, (arch, gerr)
+
+
+def profile_step(step, top: int = 10) -> None:
+    """One more call of ``step`` under ``torch.profiler``, tracing the
+    device only: the kernels' busy time against the call's wall, so the
+    device's idle share, and the device time of the ``top`` kernel
+    families (a kernel's name up to its template arguments). The
+    profiler's own cost is inside this wall, not the timed ones."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.key_averages():
+        name = re.split(r"[<(]", e.key.removeprefix("void "), 1)[0][:48]
+        by_name[name] = by_name.get(name, 0.0) + e.self_device_time_total / 1e3
+    busy_ms = sum(by_name.values())
+    top_ms = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
+    print(f"model/{MODEL_ARCH} profiled call: wall {wall_ms} ms, device "
+          f"busy {busy_ms} ms, idle share {1 - busy_ms / wall_ms}; device "
+          f"ms by kernel (top {top}) {json.dumps(top_ms)}")
+    assert busy_ms > 0, "the profiler saw no device time"
+
+
+def phase_model_full_width(args, dev, smi: str) -> None:
+    """paper-lm-100m at full width in bf16, seq 4096, ``--model-batch``
+    rows: one forward+backward timed over ``MODEL_REPS`` calls after a
+    warm-up, its peak memory and throughput; the loss at init near
+    ln(vocab), every gradient leaf finite and nonzero; the bf16 loss
+    against f32 on the same weights at batch 1."""
+    cfg = get_config(MODEL_ARCH)
+    seq, rows = TRAIN_4K_SEQ, args.model_batch
+    params = model_tf.init_params(cfg, seed=args.seed, device=dev)
+    # N for 6 N tokens: the tree's leaves (ModelConfig.param_count() leaves
+    # out the final norm's d_model)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    assert n_params == cfg.param_count() + cfg.d_model, n_params
+    batch = model_batch(cfg, rows, seq, args.seed, torch.bfloat16, dev)
+    out = {}
+
+    def step():
+        out["r"] = loss_and_grads(cfg, params, batch)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = time_ms(step, MODEL_REPS, warmup=1)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / (1 << 30)
+    profile_step(step)
+    loss, metrics, grads = out["r"]
+    tokens = rows * seq
+    # every (q tile, kv tile) the blockwise path computes, masked or not:
+    # q k^T and p v, 4 B H S^2 D a layer forward, twice that backward; the
+    # recompute's second forward is not counted, as 6 N tokens counts none
+    attn_flops = 12 * cfg.n_layers * rows * cfg.n_heads * seq * seq \
+        * cfg.head_dim
+    flops = 6 * n_params * tokens + attn_flops
+    tflops = flops / (ms / 1e3) / 1e12
+    ln_v = math.log(cfg.vocab)
+    print(f"model/{MODEL_ARCH} bf16 full width ({cfg.n_layers} x "
+          f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, "
+          f"vocab {cfg.vocab}, {n_params} parameters), batch {rows} x {seq}: "
+          f"forward+backward {ms} ms (median of {MODEL_REPS} after a "
+          f"warm-up); {tokens / (ms / 1e3)} tokens/s; peak "
+          f"{peak_gib} GiB (max_memory_allocated); {flops} flops "
+          f"(6 N tokens {6 * n_params * tokens} + blockwise attention "
+          f"{attn_flops}) = {tflops} TFLOP/s, {tflops * 1e12 / BF16_FLOPS_PER_S}"
+          f" of the {BF16_FLOPS_PER_S / 1e12:g} TFLOP/s bf16 dense peak "
+          f"({smi}); loss {float(loss)} against ln(vocab) {ln_v}")
+    assert math.isfinite(float(loss)) and abs(float(loss) - ln_v) < 0.1, \
+        float(loss)
+    bad = [i for i, g in enumerate(grads)
+           if not (bool(torch.isfinite(g).all()) and bool((g != 0).any()))]
+    assert not bad, ("gradient leaves not finite or all zero", bad)
+
+    one = {k: v[:1] for k, v in batch.items()}
+    with torch.no_grad():
+        l16 = float(model_tf.forward(cfg, params, one)[0])
+        p32 = tree_map(lambda t: t.detach().float(), params)
+        l32 = float(model_tf.forward(cfg, p32, one)[0])
+    rel = abs(l16 - l32) / abs(l32)
+    print(f"model/{MODEL_ARCH} bf16 against f32, same weights, batch 1 x "
+          f"{seq}: loss {l16} / {l32}, rel err {rel} (bar {ROW_REL_BAR[torch.bfloat16]})")
+    assert rel <= ROW_REL_BAR[torch.bfloat16], rel
+    del params, batch, out, grads, p32
+
+
+def phase_model_xlstm(args, dev) -> None:
+    """xlstm-125m at full width in bf16, batch 2 x 256: one
+    forward+backward, finite, every gradient leaf finite; then the sLSTM
+    sequence's ``autograd.Function`` against plain autograd through the
+    per-step cell, on the card at that width in f32."""
+    cfg = get_config("xlstm-125m")
+    params = model_tf.init_params(cfg, seed=args.seed, device=dev)
+    batch = model_batch(cfg, XLSTM_BATCH, XLSTM_SEQ, args.seed,
+                        torch.bfloat16, dev)
+    out = {}
+
+    def step():
+        out["r"] = loss_and_grads(cfg, params, batch)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = time_ms(step, 1, warmup=0)
+    loss, _, grads = out["r"]
+    peak_gib = torch.cuda.max_memory_allocated(dev) / (1 << 30)
+    bad = [i for i, g in enumerate(grads) if not bool(torch.isfinite(g).all())]
+    print(f"model/xlstm-125m bf16 full width ({cfg.n_layers} blocks x "
+          f"{cfg.d_model}, vocab {cfg.vocab}), batch {XLSTM_BATCH} x "
+          f"{XLSTM_SEQ}: one forward+backward {ms} ms (its first call), "
+          f"peak {peak_gib} GiB, "
+          f"loss {float(loss)}")
+    assert math.isfinite(float(loss)) and not bad, (float(loss), bad)
+
+    blk = params["blocks"][1]
+    assert not model_xlstm.is_mlstm_layer(cfg, 1)
+    d, h = cfg.d_model, cfg.n_heads
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    gx = torch.randn((XLSTM_SEQ, XLSTM_BATCH, 4, d), generator=gen,
+                     device=dev)
+    bg = torch.randn((4, d), generator=gen, device=dev) * 0.1
+    r = blk["r_gates"].detach().float()
+    zeros = torch.zeros((XLSTM_BATCH, d), device=dev)
+
+    def run(seq_fn):
+        ins = [t.clone().requires_grad_() for t in (r, bg, gx)]
+        ys, final = seq_fn(h, *ins, (zeros,) * 4)
+        val = (ys ** 2).sum() + sum(f.sum() for f in final)
+        val.backward()
+        return float(val.detach()), [t.grad for t in ins]
+
+    def plain(n_heads, rg, bgs, gxs, state):
+        ys = []
+        for t in range(gxs.shape[0]):
+            state = model_xlstm._slstm_cell_raw(n_heads, rg, bgs, gxs[t], state)
+            ys.append(state[0])
+        return torch.stack(ys), state
+
+    v_fn, g_fn = run(model_xlstm._slstm_sequence)
+    v_pl, g_pl = run(plain)
+    v_rel = abs(v_fn - v_pl) / max(1.0, abs(v_pl))
+    g_rel = max(float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(g_fn, g_pl))
+    print(f"model/xlstm-125m sLSTM autograd.Function against plain autograd "
+          f"on the card (f32, S {XLSTM_SEQ}, B {XLSTM_BATCH}, d {d}, "
+          f"{h} heads): value {v_fn} / {v_pl}, rel err {v_rel}; gradients "
+          f"(r_gates, b_gates, gates_x) worst err / scale {g_rel}")
+    assert v_rel <= 1e-5 and g_rel <= 1e-4, (v_rel, g_rel)
+
+
+def phase_model(args, dev, smi: str) -> None:
+    """Phase 9: the model's training math on the card. No kernel of the
+    registry lies on this path (the reference's model calls none of its
+    Pallas kernels), so every launch count stays 0."""
+    walls = {}
+    kern.reset_launches()
+    reset_sweep_launches()
+    for part, fn in (("families", lambda: phase_model_families(args.seed, dev)),
+                     ("full width", lambda: phase_model_full_width(args, dev, smi)),
+                     ("xlstm", lambda: phase_model_xlstm(args, dev))):
+        t0 = time.perf_counter()
+        fn()
+        walls[part] = time.perf_counter() - t0
+    launches = {**dict(kern.LAUNCHES), **sweep_launches()}
+    print(f"model/train: launches {json.dumps(launches)} (no kernel on the "
+          f"path); phase wall {sum(walls.values())} s, by part (s) "
+          f"{json.dumps(walls)}")
+    assert not any(launches.values()), launches
+
+
 def main() -> int:
     args = parse_args()
     if not torch.cuda.is_available():
@@ -1608,6 +1915,7 @@ def main() -> int:
     reduced = {k: getattr(args, k) for k in DEFAULTS
                if getattr(args, k) != DEFAULTS[k]}
     reduced["fleet/corpus shards per write x"] = FLEET_FACTOR
+    reduced["model/train micro-batch (train_4k: 32)"] = args.model_batch
     print(f"reduced: {json.dumps(reduced)}")
     tuned_dir = tempfile.mkdtemp(prefix="chip_smoke_tuned_")
     os.environ["REPRO_TORCH_TUNED_DIR"] = tuned_dir
@@ -1640,6 +1948,7 @@ def main() -> int:
                                          "fleet": fleet_counts[k["name"]]}
                 k["launches"] += fleet_counts[k["name"]]
         phase_storm_fleet(args)
+        phase_model(args, dev, smi)
     finally:
         shutil.rmtree(tuned_dir, ignore_errors=True)
     print(json.dumps({"kernels": kernels}))

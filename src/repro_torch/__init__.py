@@ -7,6 +7,10 @@ none of it. Ported layers:
   repro_torch.data     -- token shards and the compaction merge
   repro_torch.kernels  -- hand-written CUDA kernels for Hopper (sm_90a),
                           each with a plain PyTorch version
+  repro_torch.configs  -- the architecture configs (copies of the reference's)
+  repro_torch.dist     -- sharding and collectives, single device for now
+  repro_torch.models   -- the training math of all seven families, forward
+                          and backward, and the weights' carry-over
 """
 
 __version__ = "0.1.0"

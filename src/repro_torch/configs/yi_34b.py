@@ -1,0 +1,18 @@
+"""Yi-34B [arXiv:2403.04652; dense llama-arch GQA].
+
+60L d_model=7168 56H (GQA kv=8) d_ff=20480 vocab=64000.
+"""
+from repro_torch.configs import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-34b",
+    family="dense",
+    n_layers=60,
+    d_model=7168,
+    n_heads=56,
+    n_kv_heads=8,
+    d_ff=20480,
+    vocab=64000,
+    head_dim=128,
+    rope_theta=5e6,
+)

@@ -1,0 +1,282 @@
+"""Shared modeling primitives: parameter-spec machinery, norms, RoPE,
+embeddings, blockwise (memory-efficient) attention, losses.
+
+The port of ``src/repro/models/common.py``. Parameters are plain trees
+(dicts and lists) of tensors. Every parameter leaf is declared through a
+``Spec`` carrying its shape, dtype and *logical axis names*; the dist
+layer maps logical axes onto mesh axes (on one device it maps none).
+Layer stacks are stored with a leading ``layers`` axis, as in the
+reference, so a converted tree matches it leaf for leaf.
+
+The math keeps the reference's dtypes: f32 internals where it upcasts,
+products in the parameters' dtype elsewhere, and ``einsum`` promotes its
+operands to one dtype as ``jnp.einsum`` does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.dist.sharding import constrain
+
+PyTree = Any
+
+DEFAULT_PARAM_DTYPE = torch.bfloat16
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """Declaration of one parameter leaf."""
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]   # logical axis names, len == len(shape)
+    dtype: Any = None                 # None -> DEFAULT_PARAM_DTYPE
+    init: str = "normal"              # "normal" | "zeros" | "ones" | "small"
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+# ---------------------------------------------------------------------------
+# trees: dicts (keys in sorted order, as jax.tree flattens them) and lists
+# ---------------------------------------------------------------------------
+
+def tree_leaves(tree: PyTree, is_leaf: Optional[Callable] = None) -> list:
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k], is_leaf)]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t, is_leaf)]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree,
+             is_leaf: Optional[Callable] = None) -> PyTree:
+    """``fn`` over the leaves of ``tree`` and the trees of the same
+    structure in ``rest``; raises if a structure differs."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        for r in rest:
+            if not isinstance(r, dict) or sorted(r) != sorted(tree):
+                raise ValueError(f"tree structure differs: keys "
+                                 f"{sorted(tree)} against {r!r:.200}")
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest),
+                            is_leaf=is_leaf) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        for r in rest:
+            if not isinstance(r, (list, tuple)) or len(r) != len(tree):
+                raise ValueError(f"tree structure differs: a list of "
+                                 f"{len(tree)} against {r!r:.200}")
+        return type(tree)(tree_map(fn, *xs, is_leaf=is_leaf)
+                          for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, Spec)
+
+
+def resolve_device(device: Union[str, torch.device, None],
+                   who: str) -> torch.device:
+    """The card unless the caller names another device; there is no
+    silent fallback to the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device; pass device='cpu' to "
+                           "run on the host")
+    return device
+
+
+def materialize(spec: Spec, gen: torch.Generator,
+                device: torch.device) -> torch.Tensor:
+    """One leaf. Draws come from ``gen`` on the host, so a seed gives the
+    same values on every device; they are not ``jax.random``'s."""
+    dtype = spec.dtype or DEFAULT_PARAM_DTYPE
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    # fan-in scaled normal; last axis treated as fan-out
+    fan_in = int(np.prod(spec.shape[:-1])) if len(spec.shape) > 1 else spec.shape[0]
+    scale = 0.02 if spec.init == "small" else 1.0 / np.sqrt(max(fan_in, 1))
+    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32) * scale
+    return x.to(device=device, dtype=dtype)
+
+
+def tree_init(specs: PyTree, seed: int, device: torch.device) -> PyTree:
+    gen = torch.Generator().manual_seed(seed)
+    leaves = tree_leaves(specs, is_spec)
+    by_id = {id(s): materialize(s, gen, device) for s in leaves}
+    return tree_map(lambda s: by_id[id(s)], specs, is_leaf=is_spec)
+
+
+def stack_layer_specs(layer_specs: PyTree, n_layers: int) -> PyTree:
+    """Add a leading ``layers`` axis to every leaf spec."""
+    return tree_map(
+        lambda s: Spec((n_layers,) + s.shape, ("layers",) + s.axes, s.dtype, s.init),
+        layer_specs, is_leaf=is_spec)
+
+
+def require_train(mode: str, who: str) -> None:
+    """This slice ports the training path; the other modes raise."""
+    if mode != "train":
+        raise NotImplementedError(
+            f"{who}: mode={mode!r} comes with single-device serving "
+            "(ROADMAP queue 1, item 2); this slice ports mode='train'")
+
+
+# ---------------------------------------------------------------------------
+# primitives
+# ---------------------------------------------------------------------------
+
+def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with ``jnp.einsum``'s dtype promotion: every
+    operand is cast to the operands' common dtype first."""
+    dt = operands[0].dtype
+    for t in operands[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return torch.einsum(eq, *(t.to(dt) for t in operands))
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(dt) * scale.to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                  # (D/2,)
+    ang = positions.float()[..., None] * freqs              # (..., S, D/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    # x (bf16) times the f32 angles promotes to f32, then casts back once
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    hid_axes = (None,) * (x.ndim - 1) + ("mlp",)
+    hid_axes = ("batch",) + hid_axes[1:]
+    g = constrain(einsum("...d,df->...f", x, w_gate), *hid_axes)
+    u = constrain(einsum("...d,df->...f", x, w_up), *hid_axes)
+    return einsum("...f,fd->...d", F.silu(g) * u, w_down)
+
+
+# ---------------------------------------------------------------------------
+# attention (plain torch): blockwise online-softmax, never materializes S x S
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def _attn_block(q, k, v, q_pos, k_pos, causal, window, scale):
+    """One (q-block, kv-block) tile. q:(B,bq,H,D) k/v:(B,bk,Hkv,D)."""
+    b, bq, h, d = q.shape
+    hkv = k.shape[2]
+    group = h // hkv
+    qg = q.reshape(b, bq, hkv, group, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    mask = torch.ones((bq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window:
+        mask &= q_pos[:, None] - k_pos[None, :] < window
+    mask &= (k_pos >= 0)[None, :]
+    # NEG_INF, not -inf: a wholly masked tile gets m = NEG_INF and l = bk,
+    # which the next live tile's rescale multiplies by exp(NEG_INF - m) = 0
+    s = torch.where(mask[None, None, None], s, NEG_INF)
+    m = torch.amax(s, dim=-1)                                 # (B,hkv,g,bq)
+    p = torch.exp(s - m[..., None])
+    l = torch.sum(p, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
+    return m, l, o
+
+
+def blockwise_attention(q, k, v, *, causal=True, window=0,
+                        q_offset=0, k_positions=None,
+                        block_q=1024, block_k=1024):
+    """Memory-efficient attention.
+
+    q: (B, Sq, H, D); k,v: (B, Sk, Hkv, D). Returns (B, Sq, H, D).
+    ``q_offset``: absolute position of q[0] (for decode/prefill continuation).
+    ``k_positions``: optional (Sk,) absolute positions of cache slots
+      (ring buffers); -1 marks invalid slots. Defaults to arange(Sk).
+
+    Every (q tile, kv tile) pair is computed, masked or not, in the
+    reference's order: the online softmax over kv tiles inside each q
+    tile, f32 scores, ``NEG_INF`` for masked entries.
+    """
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    scale = 1.0 / np.sqrt(d)
+    bq = min(block_q, sq)
+    bk = min(block_k, sk)
+    nq, nk = sq // bq, sk // bk
+    assert sq % bq == 0 and sk % bk == 0, (sq, bq, sk, bk)
+    dev = q.device
+    if k_positions is None:
+        k_positions = torch.arange(sk, dtype=torch.int32, device=dev)
+    q_pos = q_offset + torch.arange(sq, dtype=torch.int32, device=dev)
+
+    dv = v.shape[-1]
+    group = h // hkv
+    run_axes = ("batch", "kv_heads", None, None)
+
+    def q_step(qi):
+        qblk = q[:, qi * bq:(qi + 1) * bq]
+        qp = q_pos[qi * bq:(qi + 1) * bq]
+        m_run = constrain(torch.full((b, hkv, group, bq), NEG_INF,
+                                     dtype=torch.float32, device=dev), *run_axes)
+        l_run = constrain(torch.zeros((b, hkv, group, bq), dtype=torch.float32,
+                                      device=dev), *run_axes)
+        o_run = constrain(torch.zeros((b, hkv, group, bq, dv),
+                                      dtype=torch.float32, device=dev),
+                          *run_axes, None)
+        for ki in range(nk):
+            sl = slice(ki * bk, (ki + 1) * bk)
+            m, l, o = _attn_block(qblk, k[:, sl], v[:, sl], qp,
+                                  k_positions[sl], causal, window, scale)
+            m_new = torch.maximum(m_run, m)
+            a_old = torch.exp(m_run - m_new)
+            a_new = torch.exp(m - m_new)
+            l_run = l_run * a_old + l * a_new
+            o_run = o_run * a_old[..., None] + o * a_new[..., None]
+            m_run = m_new
+        out = o_run / torch.clamp_min(l_run[..., None], 1e-30)
+        out = out.permute(0, 3, 1, 2, 4).reshape(b, bq, h, dv)
+        return constrain(out.to(q.dtype), "batch", None, "heads", None)
+
+    if nq == 1:
+        return q_step(0)
+    return torch.cat([q_step(qi) for qi in range(nq)], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy over (optionally masked) positions. fp32 internals."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

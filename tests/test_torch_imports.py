@@ -1,10 +1,12 @@
 """Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` stand
 alone.
 
-Every module under ``src/repro_torch`` imports in a fresh interpreter with
-no Triton and no CUDA, and leaves neither ``jax`` nor any module of the
-JAX package in ``sys.modules``; a static scan finds no import of either;
-and the merge's default device refuses to run silently on the CPU.
+Every module under ``src/repro_torch`` (the model slice's ``configs``,
+``dist`` and ``models`` included) imports in a fresh interpreter with no
+Triton and no CUDA, and leaves neither ``jax``, nor ``ml_dtypes``, nor any
+module of the JAX package in ``sys.modules``; a static scan finds no import
+of any of them; and the merge's default device refuses to run silently on
+the CPU.
 """
 
 import functools
@@ -22,7 +24,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b|from\s+repro\b"
-    r"|import\s+repro\.|from\s+repro\.)", re.M)
+    r"|import\s+repro\.|from\s+repro\.|import\s+ml_dtypes\b"
+    r"|from\s+ml_dtypes\b)", re.M)
 
 
 def _port_modules():
@@ -42,6 +45,7 @@ def test_every_port_module_imports_without_jax_or_reference():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'ml_dtypes' or m.startswith('ml_dtypes.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "print('ok', len([m for m in sys.modules\n"
@@ -52,6 +56,17 @@ def test_every_port_module_imports_without_jax_or_reference():
                           text=True, env=env, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_the_model_slice_is_collected():
+    names = _port_modules()
+    for mod in ("repro_torch.configs", "repro_torch.configs.paper_lm_100m",
+                "repro_torch.dist.sharding", "repro_torch.dist.collectives",
+                "repro_torch.models.common", "repro_torch.models.attention",
+                "repro_torch.models.moe", "repro_torch.models.ssm",
+                "repro_torch.models.xlstm", "repro_torch.models.transformer",
+                "repro_torch.models.interop"):
+        assert mod in names, mod
 
 
 @pytest.mark.parametrize("path", sorted(
