@@ -72,7 +72,22 @@ Needs one CUDA card and ``nvcc``. Phases, each reported on its own lines:
    ln(vocab), every gradient leaf finite and nonzero, and the bf16 loss
    against f32 on the same weights at batch 1; then ``xlstm-125m`` at full
    width, batch 2 x 256, and its sLSTM ``autograd.Function`` against plain
-   autograd on the card.
+   autograd on the card;
+10. ``train/launch``: the trainer on the card. ``launch.train.main([])``
+    at its own defaults (``paper-lm-100m`` at full width in bf16, 60 steps
+    of 8 x 256 in 2 microbatches, an AutoComp cycle every 25 steps merging
+    with ``compact_chunks``, a checkpoint every 20): the step ms and
+    tokens/s, the checkpoint saves' blocking time and the cycles' time,
+    every merge against numpy and every cycle's counts against a host
+    replay (``device="cpu"``), and ``compact_chunks``'s launches on this
+    path (``launches_by_path["train"]``); the same wiring preempted at step
+    30, restored from the step-20 checkpoint onto the card and run to step
+    60; then the train step at ``train_4k``'s width (``--model-batch`` x
+    4096, one microbatch) from a ``Trainer`` over the launcher's corpus,
+    both gradient transports, prefetching and plain, with the step's
+    excess over phase 9's forward+backward, peak memory and the consumer's
+    wait for each batch; and ``compressed_psum`` on the embedding's
+    full-width leaf, card against CPU, bit for bit.
 
 Times are CUDA events around each call, the host's work up to the launch
 included, as a user of the op pays it. Each kernel's entry also carries
@@ -82,7 +97,8 @@ spin kernel, so that the events time the device alone.
 The tuned-point cache lives in a fresh temporary directory for the run
 (``REPRO_TORCH_TUNED_DIR``), so no earlier sweep changes a default point.
 The kernels line's ``launches`` for the ``compact_pack`` kernels is the
-sum over phases 4 and 7, ``launches_by_path`` each. It exits non-zero when
+sum over phases 4 and 7 (and 10 for ``compact_chunks``),
+``launches_by_path`` each. It exits non-zero when
 a phase fails, and prints as its last line
 ``{"ok": true, "device": {...}}`` only when every phase passed.
 """
@@ -138,6 +154,13 @@ from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.models import transformer as model_tf  # noqa: E402
 from repro_torch.models import xlstm as model_xlstm  # noqa: E402
 from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
+from repro_torch.dist import collectives as coll  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.train import optimizer as opt_lib  # noqa: E402
+from repro_torch.train import step as step_lib  # noqa: E402
+from repro_torch.train.checkpoints import CheckpointManager  # noqa: E402
+from repro_torch.train.runner import (RunnerConfig,  # noqa: E402
+                                      SimulatedPreemption, Trainer)
 
 MIB = 1 << 20
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA's data sheet
@@ -1388,10 +1411,10 @@ class MergeCheck:
         self.records = []
 
     def __call__(self, table, task, out_path, filter_fn=None,
-                 fused_filter=True):
+                 fused_filter=True, **kw):
         inputs = [(f, table.store.get(f.path)) for f in task.inputs]
         res = self.merge_fn(table, task, out_path, filter_fn=filter_fn,
-                            fused_filter=fused_filter)
+                            fused_filter=fused_filter, **kw)
         self.records.append((inputs, table.store.get(out_path),
                              filter_fn is not None, res))
         return res
@@ -1738,26 +1761,30 @@ def phase_model_families(seed: int, dev) -> None:
         assert gerr <= 1.0, (arch, gerr)
 
 
-def profile_step(step, top: int = 10) -> None:
+def profile_step(step, top: int = 10,
+                 label: str = f"model/{MODEL_ARCH}") -> None:
     """One more call of ``step`` under ``torch.profiler``, tracing the
     device only: the kernels' busy time against the call's wall, so the
-    device's idle share, and the device time of the ``top`` kernel
-    families (a kernel's name up to its template arguments). The
-    profiler's own cost is inside this wall, not the timed ones."""
+    device's idle share, the kernels launched, and the device time of the
+    ``top`` kernel families (a kernel's name up to its template
+    arguments). The profiler's own cost is inside this wall, not the
+    timed ones."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
+    by_name, kernels = {}, 0
     for e in prof.key_averages():
         name = re.split(r"[<(]", e.key.removeprefix("void "), 1)[0][:48]
         by_name[name] = by_name.get(name, 0.0) + e.self_device_time_total / 1e3
+        kernels += e.count if e.self_device_time_total > 0 else 0
     busy_ms = sum(by_name.values())
     top_ms = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
-    print(f"model/{MODEL_ARCH} profiled call: wall {wall_ms} ms, device "
-          f"busy {busy_ms} ms, idle share {1 - busy_ms / wall_ms}; device "
+    print(f"{label} profiled call: wall {wall_ms} ms, device "
+          f"busy {busy_ms} ms, idle share {1 - busy_ms / wall_ms}; "
+          f"{kernels} device activities; device "
           f"ms by kernel (top {top}) {json.dumps(top_ms)}")
     assert busy_ms > 0, "the profiler saw no device time"
 
@@ -1822,6 +1849,7 @@ def phase_model_full_width(args, dev, smi: str) -> None:
           f"{seq}: loss {l16} / {l32}, rel err {rel} (bar {ROW_REL_BAR[torch.bfloat16]})")
     assert rel <= ROW_REL_BAR[torch.bfloat16], rel
     del params, batch, out, grads, p32
+    return ms
 
 
 def phase_model_xlstm(args, dev) -> None:
@@ -1886,24 +1914,290 @@ def phase_model_xlstm(args, dev) -> None:
     assert v_rel <= 1e-5 and g_rel <= 1e-4, (v_rel, g_rel)
 
 
-def phase_model(args, dev, smi: str) -> None:
+def phase_model(args, dev, smi: str) -> float:
     """Phase 9: the model's training math on the card. No kernel of the
     registry lies on this path (the reference's model calls none of its
-    Pallas kernels), so every launch count stays 0."""
-    walls = {}
+    Pallas kernels), so every launch count stays 0. Returns the full-width
+    forward+backward ms."""
+    walls, out = {}, {}
     kern.reset_launches()
     reset_sweep_launches()
     for part, fn in (("families", lambda: phase_model_families(args.seed, dev)),
                      ("full width", lambda: phase_model_full_width(args, dev, smi)),
                      ("xlstm", lambda: phase_model_xlstm(args, dev))):
         t0 = time.perf_counter()
-        fn()
+        out[part] = fn()
         walls[part] = time.perf_counter() - t0
     launches = {**dict(kern.LAUNCHES), **sweep_launches()}
     print(f"model/train: launches {json.dumps(launches)} (no kernel on the "
           f"path); phase wall {sum(walls.values())} s, by part (s) "
           f"{json.dumps(walls)}")
     assert not any(launches.values()), launches
+    return out["full width"]
+
+
+# --------------------------------------------------------- the trainer
+# train/launch: the launcher at its own defaults (paper-lm-100m, bf16, 60
+# steps of 8 x 256 in 2 microbatches, a cycle every 25 steps, a checkpoint
+# every 20); then a preemption at step 30, as examples/train_e2e.py makes
+# one at 35; then the train step at train_4k's width from a Trainer over
+# the launcher's corpus
+PREEMPT_AT, RESTORE_STEP = 30, 20
+STEP_4K_STEPS = 4
+
+
+class Timed:
+    """Wraps a method of a class for the phase: each call's wall time,
+    and what ``after`` reads once the call returns. Restores the method
+    on exit."""
+
+    def __init__(self, cls, name: str, after=None):
+        self.cls, self.name, self.after = cls, name, after
+        self.walls, self.seen = [], []
+
+    def __enter__(self):
+        inner = self.inner = getattr(self.cls, self.name)
+        timed = self
+
+        def wrapper(obj, *a, **kw):
+            t0 = time.perf_counter()
+            out = inner(obj, *a, **kw)
+            timed.walls.append(time.perf_counter() - t0)
+            if timed.after is not None:
+                timed.seen.append(timed.after(obj, out, *a))
+            return out
+
+        setattr(self.cls, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.inner)
+
+
+def cycle_files(_pipeline, report, catalog) -> tuple:
+    """After a cycle: its report's counts and the catalog's file count."""
+    return (report.files_removed, report.gbhr,
+            sum(t.file_count() for t in catalog.tables()))
+
+
+def replay_cycles(args_ns, n_steps: int) -> list:
+    """The launcher's data and AutoComp wiring ticked as ``main`` ticks it,
+    merged on the host with ``device="cpu"``: each cycle's counts."""
+    cfg = get_config(args_ns.arch)
+    catalog, _, _, clock, _ = launch_train.build_data(
+        cfg, batch=args_ns.batch, seq_len=args_ns.seq_len, device="cpu")
+    autocomp = launch_train.build_autocomp(catalog, clock, device="cpu")
+    seen = []
+    for i in range(1, n_steps + 1):
+        clock.advance(0.01)
+        if i % args_ns.compact_every == 0:
+            seen.append(cycle_files(None, autocomp.run_cycle(catalog),
+                                    catalog))
+    return seen
+
+
+def step_ms(history, first: int = 1) -> float:
+    return statistics.median(h["time_s"] for h in history[first:]) * 1e3
+
+
+def phase_train_launcher(smi: str):
+    """Run 1: ``launch.train.main([])`` on the card, every merge held
+    against numpy, the cycles against a host replay; the kernels' launch
+    counts on this path."""
+    ns = launch_train.parse_args([])
+    check = MergeCheck(packing.merge_shards_fn)
+    launch_train.merge_shards_fn = check
+    kern.reset_launches()
+    reset_sweep_launches()
+    try:
+        with Timed(CheckpointManager, "save") as saves, \
+                Timed(AutoCompPipeline, "run_cycle", cycle_files) as cycles:
+            t0 = time.perf_counter()
+            out = launch_train.main([])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        launch_train.merge_shards_fn = packing.merge_shards_fn
+    launches = {**dict(kern.LAUNCHES), **sweep_launches()}
+    hist = out["history"]
+    ms = step_ms(hist)
+    tokens = ns.batch * ns.seq_len
+    merged = check.verify(drop_rows=None)
+    print(f"train/launch run 1 ({smi}): main([]) -- {out['launch'].cfg.name}"
+          f" bf16, {ns.steps} steps of {ns.batch} x {ns.seq_len} in "
+          f"{ns.microbatches} microbatches, grad_transport "
+          f"{ns.grad_transport}: wall {wall} s; step {ms} ms (median of "
+          f"steps 2-{ns.steps}), first step {hist[0]['time_s'] * 1e3} ms, "
+          f"{tokens / (ms / 1e3)} tokens/s; checkpoint saves' blocking part "
+          f"{sum(saves.walls)} s over {len(saves.walls)} saves "
+          f"({json.dumps(saves.walls)}); AutoComp cycles "
+          f"{sum(cycles.walls)} s over {len(cycles.walls)} cycles; loss "
+          f"{hist[0]['loss']} -> {hist[-1]['loss']}; launches "
+          f"{json.dumps(launches)}; merges checked {json.dumps(merged)}")
+    assert out["final_step"] == ns.steps and hist[-1]["loss"] < hist[0]["loss"]
+    assert any(c[0] for c in cycles.seen), cycles.seen
+    assert launches["compact_chunks"] >= 1, launches
+    assert merged["compactions"] >= 1 and merged["rewrite_deletes"] == 0
+    tr = out["launch"].trainer
+    batches = out["launch"].pipe.batches()
+    batch = next(batches)
+    batches.close()
+    profile_step(lambda: tr.train_step(tr.params, tr.opt_state, batch),
+                 label="train/launch step")
+    replay = replay_cycles(ns, ns.steps)
+    print(f"train/launch cycles (files removed, gbhr, table files): card "
+          f"{cycles.seen}, host replay {replay}")
+    assert cycles.seen == replay, (cycles.seen, replay)
+    return hist, launches
+
+
+def phase_train_preempt(dev, smi: str, run1) -> None:
+    """Run 2: the same wiring through ``Trainer.run_with_recovery`` with a
+    preemption at step ``PREEMPT_AT``. Before it, each step's loss is run
+    1's within the bf16 bar (the same batches). After the restore the
+    Trainer starts its batch iterator afresh (``Trainer.run``, as the
+    reference's), so step s sees another batch than in run 1: the mean loss
+    over those steps is held to run 1's, and the worst step is printed."""
+    fired = []
+
+    def fault(step):
+        if step == PREEMPT_AT and not fired:
+            fired.append(step)
+            raise SimulatedPreemption()
+
+    def restored(_mgr, out, *_a):
+        (params, opt, _), step = out
+        leaves = tree_leaves((params, opt))
+        return step, all(t.device == dev for t in leaves), len(leaves)
+
+    launch = launch_train.build(launch_train.parse_args([]), fault_hook=fault)
+    kern.reset_launches()
+    with Timed(CheckpointManager, "restore", restored) as restores:
+        t0 = time.perf_counter()
+        out = launch.trainer.run_with_recovery()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    hist = out["history"]
+    steps = [h["step"] for h in hist]
+    bar = ROW_REL_BAR[torch.bfloat16]
+
+    def rel(h):
+        return abs(h["loss"] - run1[h["step"]]["loss"]) \
+            / abs(run1[h["step"]]["loss"])
+
+    before, after = hist[:PREEMPT_AT], hist[PREEMPT_AT:]
+    mean2 = statistics.fmean(h["loss"] for h in after)
+    mean1 = statistics.fmean(run1[h["step"]]["loss"] for h in after)
+    mean_rel = abs(mean2 - mean1) / mean1
+    print(f"train/launch run 2 ({smi}): preempted at step {PREEMPT_AT}, "
+          f"restored (step, every leaf on {dev}, leaves) {restores.seen} in "
+          f"{restores.walls} s, restarts {launch.trainer.restarts}, final "
+          f"step {out['final_step']}; wall {wall} s; against run 1 at the "
+          f"same steps: before the preemption worst rel diff "
+          f"{max(map(rel, before))}, after the restore mean loss {mean2} / "
+          f"{mean1} rel diff {mean_rel}, worst step {max(map(rel, after))} "
+          f"(bar {bar}); compact_chunks launches "
+          f"{kern.LAUNCHES['compact_chunks']}")
+    assert launch.trainer.restarts == 1 and out["final_step"] == 60
+    assert [s for s, *_ in restores.seen] == [RESTORE_STEP]
+    assert all(on_dev for _, on_dev, _ in restores.seen)
+    assert steps == list(range(PREEMPT_AT)) + list(range(RESTORE_STEP, 60))
+    assert max(map(rel, before)) <= bar and mean_rel <= bar, mean_rel
+
+
+def timed_batches(factory, waits: list):
+    """``factory``'s batches, with the consumer's wait in each ``next``."""
+    def gen():
+        it = factory()
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    b = next(it)
+                except StopIteration:
+                    return
+                waits.append(time.perf_counter() - t0)
+                yield b
+        finally:
+            it.close()
+    return gen
+
+
+def phase_train_step_4k(args, dev, smi: str, fwd_bwd_ms: float) -> None:
+    """The train step at train_4k's width (16 x 4096, one microbatch) from
+    a Trainer over a DataPipeline on the launcher's corpus, both
+    transports, prefetching and plain; then compressed_psum on one
+    full-width leaf, card against CPU."""
+    cfg = get_config(MODEL_ARCH)
+    rows, seq = args.model_batch, TRAIN_4K_SEQ
+    _, table, pipe, _, _ = launch_train.build_data(
+        cfg, batch=rows, seq_len=seq, device=dev)
+    params = model_tf.init_params(cfg, seed=args.seed, device=dev)
+    adamw = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=60)
+    for transport in step_lib.GRAD_TRANSPORTS:
+        step_fn = step_lib.make_train_step(cfg, adamw, microbatches=1,
+                                           grad_transport=transport)
+        for mode in ("prefetching", "plain"):
+            waits, h2d0 = [], pipe.h2d_time_s
+            factory = pipe.prefetching_batches if mode == "prefetching" \
+                else pipe.batches
+            tr = Trainer(RunnerConfig(total_steps=STEP_4K_STEPS),
+                         step_fn, params, opt_lib.init_state(
+                             params, error_feedback=transport == "int8_ef"),
+                         timed_batches(factory, waits))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            out = tr.run()
+            peak = torch.cuda.max_memory_allocated(dev) / (1 << 30)
+            hist = out["history"]
+            ms = step_ms(hist)
+            print(f"train/step_4k ({smi}): {transport}, {mode}: {rows} x "
+                  f"{seq}, {STEP_4K_STEPS} steps: step {ms} ms (median of "
+                  f"steps 2-{STEP_4K_STEPS}; all {[h['time_s'] * 1e3 for h in hist]}"
+                  f"), {ms - fwd_bwd_ms} ms over phase 9's forward+backward "
+                  f"{fwd_bwd_ms} ms; {rows * seq / (ms / 1e3)} tokens/s; "
+                  f"peak {peak} GiB; wait in next(it) per step (ms) "
+                  f"{[w * 1e3 for w in waits]}; loss "
+                  f"{hist[0]['loss']} -> {hist[-1]['loss']}; "
+                  f"{pipe.files_scanned} files, h2d "
+                  f"{pipe.h2d_time_s - h2d0} s")
+            assert all(math.isfinite(h["loss"]) for h in hist)
+            assert int(tr.opt_state["step"]) == STEP_4K_STEPS
+            del tr, out
+    del params
+
+    # compressed_psum on the embedding's full-width leaf, card against CPU
+    gen = torch.Generator().manual_seed(args.seed)
+    shape = (cfg.vocab, cfg.d_model)
+    x = torch.randn(shape, generator=gen) \
+        * torch.exp(torch.randn(shape, generator=gen) * 3)
+    err = torch.randn(shape, generator=gen) * 1e-2
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        o_c, e_c = coll.compressed_psum(xd, None, err)
+        o_d, e_d = coll.compressed_psum(xd.to(dev), None, err.to(dev))
+        same = same_bits(o_d.cpu(), o_c) and same_bits(e_d.cpu(), e_c)
+        print(f"train/step_4k compressed_psum {tuple(shape)} {dtype}: card "
+              f"against CPU, outputs and residuals bit-equal: {same}")
+        assert same
+
+
+def phase_train(args, dev, smi: str, fwd_bwd_ms: float) -> int:
+    """Phase 10: the trainer on the card. Returns ``compact_chunks``'s
+    launches on the launcher's run (the ``train`` path)."""
+    walls = {}
+    t0 = time.perf_counter()
+    run1, launches = phase_train_launcher(smi)
+    walls["launcher"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_train_preempt(dev, smi, run1)
+    walls["preemption"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_train_step_4k(args, dev, smi, fwd_bwd_ms)
+    walls["step_4k"] = time.perf_counter() - t0
+    print(f"train/launch: phase wall {sum(walls.values())} s, by part (s) "
+          f"{json.dumps(walls)}")
+    return launches["compact_chunks"]
 
 
 def main() -> int:
@@ -1916,6 +2210,7 @@ def main() -> int:
                if getattr(args, k) != DEFAULTS[k]}
     reduced["fleet/corpus shards per write x"] = FLEET_FACTOR
     reduced["model/train micro-batch (train_4k: 32)"] = args.model_batch
+    reduced["train/step_4k micro-batch (train_4k: 32)"] = args.model_batch
     print(f"reduced: {json.dumps(reduced)}")
     tuned_dir = tempfile.mkdtemp(prefix="chip_smoke_tuned_")
     os.environ["REPRO_TORCH_TUNED_DIR"] = tuned_dir
@@ -1948,7 +2243,12 @@ def main() -> int:
                                          "fleet": fleet_counts[k["name"]]}
                 k["launches"] += fleet_counts[k["name"]]
         phase_storm_fleet(args)
-        phase_model(args, dev, smi)
+        fwd_bwd_ms = phase_model(args, dev, smi)
+        train_chunks = phase_train(args, dev, smi, fwd_bwd_ms)
+        for k in kernels:
+            if k["name"] == "compact_chunks":
+                k["launches_by_path"]["train"] = train_chunks
+                k["launches"] += train_chunks
     finally:
         shutil.rmtree(tuned_dir, ignore_errors=True)
     print(json.dumps({"kernels": kernels}))

@@ -8,9 +8,12 @@ none of it. Ported layers:
   repro_torch.kernels  -- hand-written CUDA kernels for Hopper (sm_90a),
                           each with a plain PyTorch version
   repro_torch.configs  -- the architecture configs (copies of the reference's)
-  repro_torch.dist     -- sharding and collectives, single device for now
+  repro_torch.dist     -- sharding and the int8 gradient quantizers, single
+                          device for now
   repro_torch.models   -- the training math of all seven families, forward
                           and backward, and the weights' carry-over
+  repro_torch.train    -- AdamW, the train step, checkpoints, the Trainer
+  repro_torch.launch   -- the training launcher on one device
 """
 
 __version__ = "0.1.0"

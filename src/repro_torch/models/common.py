@@ -78,6 +78,35 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree,
     return fn(tree, *rest)
 
 
+def tree_unflatten(like: PyTree, leaves: list) -> PyTree:
+    """``like``'s structure holding ``leaves``, taken in ``tree_leaves``'
+    order (dict keys sorted)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            vals = {k: build(t[k]) for k in sorted(t)}
+            return {k: vals[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+
+    out = build(like)
+    if next(it, it) is not it:
+        raise ValueError("tree_unflatten: more leaves than the tree holds")
+    return out
+
+
+def tree_unzip(tree: PyTree, n: int) -> Tuple[PyTree, ...]:
+    """A tree whose leaves are ``n``-tuples as ``n`` trees of the same
+    structure, the i-th holding each tuple's i-th entry."""
+    def is_tuple(x):
+        return isinstance(x, tuple) and len(x) == n and \
+            not isinstance(x[0], (dict, list, tuple))
+    return tuple(tree_map(lambda t: t[i], tree, is_leaf=is_tuple)
+                 for i in range(n))
+
+
 def is_spec(x) -> bool:
     return isinstance(x, Spec)
 

@@ -2,11 +2,11 @@
 alone.
 
 Every module under ``src/repro_torch`` (the model slice's ``configs``,
-``dist`` and ``models`` included) imports in a fresh interpreter with no
-Triton and no CUDA, and leaves neither ``jax``, nor ``ml_dtypes``, nor any
-module of the JAX package in ``sys.modules``; a static scan finds no import
-of any of them; and the merge's default device refuses to run silently on
-the CPU.
+``dist`` and ``models``, and the training slice's ``train`` and
+``launch`` included) imports in a fresh interpreter with no Triton and no
+CUDA, and leaves neither ``jax``, nor ``ml_dtypes``, nor any module of the
+JAX package in ``sys.modules``; a static scan finds no import of any of
+them; and the merge's default device refuses to run silently on the CPU.
 """
 
 import functools
@@ -66,6 +66,15 @@ def test_the_model_slice_is_collected():
                 "repro_torch.models.moe", "repro_torch.models.ssm",
                 "repro_torch.models.xlstm", "repro_torch.models.transformer",
                 "repro_torch.models.interop"):
+        assert mod in names, mod
+
+
+def test_the_training_slice_is_collected():
+    names = _port_modules()
+    for mod in ("repro_torch.train", "repro_torch.train.optimizer",
+                "repro_torch.train.step", "repro_torch.train.checkpoints",
+                "repro_torch.train.runner", "repro_torch.launch",
+                "repro_torch.launch.mesh", "repro_torch.launch.train"):
         assert mod in names, mod
 
 
