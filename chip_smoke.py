@@ -87,7 +87,31 @@ Needs one CUDA card and ``nvcc``. Phases, each reported on its own lines:
     both gradient transports, prefetching and plain, with the step's
     excess over phase 9's forward+backward, peak memory and the consumer's
     wait for each batch; and ``compressed_psum`` on the embedding's
-    full-width leaf, card against CPU, bit for bit.
+    full-width leaf, card against CPU, bit for bit;
+11. ``serve/...``: serving on the card, which calls no kernel of the
+    registry (the reference's model calls none). Each decoding family's
+    smoke model in f32 with TF32 off, card against CPU: prefill logits
+    and the first decode step's from the same cache within the CPU
+    tests' f32 bar, greedy tokens equal (or the CPU's top-2 margin at the
+    first difference under the bar), ``hubert-xlarge`` through the encode
+    step; the reference's bit-equal properties on the card (a ragged row
+    equals a solo run, slots equal batch, an evicted request equals an
+    uncontended run, paged equals unpaged). Then Granite-3-8B at full
+    width in bf16 (``src/repro/configs/granite_3_8b.py``), weights from
+    ``init_params`` drawn on the card: 8 requests of 512-2048 tokens from
+    ``--seed`` in a 2048-token buffer, 64 new tokens greedy, through the
+    batch path in bf16, int8 and f8 storage, 4 slots under both cache
+    transfers, and the fan-in engine (2 workers, 4 slots, 2 priority
+    classes, priority eviction) unpaged and paged at the page phase 6's
+    sweep left; per mode the end-to-end seconds, prefill ms and time to
+    the first token, the decode step's median ms and tokens/s, peak GiB,
+    the cache's bytes as stored, the engines' stats and one profiled
+    decode step (idle share, device ms by kernel family); gated: logits
+    finite, tokens in the vocabulary, paged tokens equal to unpaged, the
+    int8 and f8 first-step logits within the reference's bars of bf16,
+    the cache sizes, each ragged row's prefill within ``ROW_REL_BAR`` of
+    a solo prefill, evictions in the contended fan-in; then ``cast_f8``
+    over all 65,536 bf16 patterns, card against CPU, byte for byte.
 
 Times are CUDA events around each call, the host's work up to the launch
 included, as a user of the op pays it. Each kernel's entry also carries
@@ -98,7 +122,8 @@ The tuned-point cache lives in a fresh temporary directory for the run
 (``REPRO_TORCH_TUNED_DIR``), so no earlier sweep changes a default point.
 The kernels line's ``launches`` for the ``compact_pack`` kernels is the
 sum over phases 4 and 7 (and 10 for ``compact_chunks``),
-``launches_by_path`` each. It exits non-zero when
+``launches_by_path`` each; every kernel's ``launches_by_path["serve"]``
+is phase 11's count, 0. It exits non-zero when
 a phase fails, and prints as its last line
 ``{"ok": true, "device": {...}}`` only when every phase passed.
 """
@@ -151,10 +176,12 @@ from repro_torch.lst import workload as port_workload  # noqa: E402
 from repro_torch.lst.workload import SimClock  # noqa: E402
 from repro_torch.kernels.paged_attn import tuned_page_size  # noqa: E402
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from repro_torch.models import registry as model_registry  # noqa: E402
 from repro_torch.models import transformer as model_tf  # noqa: E402
 from repro_torch.models import xlstm as model_xlstm  # noqa: E402
 from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.dist import collectives as coll  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.train import optimizer as opt_lib  # noqa: E402
 from repro_torch.train import step as step_lib  # noqa: E402
@@ -2200,6 +2227,436 @@ def phase_train(args, dev, smi: str, fwd_bwd_ms: float) -> int:
     return launches["compact_chunks"]
 
 
+# ------------------------------------------------------------ serving
+# serve/granite-3-8b: decode_32k's decode (src/repro/configs/shapes.py:35,
+# 128 rows x 32768) cut to 8 requests in a 2048-token prompt buffer, each
+# of 512-2048 tokens from --seed, 64 new tokens greedy (horizon <= 2112).
+# The cut: prefill runs through the plain f32 blockwise attention, whose
+# eager tile passes were 73% of the device in phase 9.
+SERVE_ARCH = "granite-3-8b"
+SERVE_BATCH, SERVE_BUFFER, SERVE_NEW = 8, 2048, 64
+SERVE_LEN_RANGE = (512, 2048)
+SERVE_SLOTS, SERVE_WORKERS, SERVE_CLASSES = 4, 2, 2
+DECODE_32K_ROWS, DECODE_32K_SEQ = 128, 32768
+# the serve steps' CPU bars (tests/test_torch_serve_steps.py), and the
+# reference's bars for quantized storage against bf16
+# (tests/test_serve.py:192, :253)
+SERVE_F32_TOL = 2e-6
+STORAGE_BARS = {"int8": 0.05, "f8": 0.08}
+SERVE_PROFILE_CALL = 3        # the decode call profiled in each mode
+
+
+class ServeProbe:
+    """Wraps the serve steps that ``serve.generate`` builds while it is
+    entered: each prefill's and decode's wall (host clock ending in a
+    synchronize, as the engine's own argmax syncs every step), the first
+    prefill's and decode's logits, every logit finite, the paged store's
+    gather and scatter walls, and one decode call under the profiler."""
+
+    def __init__(self, label: str, profile_call=None, keep_all=False):
+        self.label, self.profile_call = label, profile_call
+        self.keep_all = keep_all
+        self.prefill_s, self.decode_s, self.gather_s, self.scatter_s = \
+            [], [], [], []
+        self.prefill_logits, self.decode_logits = [], []
+        self.t0 = self.ttft_s = None
+        self.finite, self.n_decode = True, 0
+
+    def _sync(self, out):
+        leaf = tree_leaves(out)[0]
+        if leaf.device.type == "cuda":
+            torch.cuda.synchronize(leaf.device)
+
+    def _timed(self, fn, walls, logits, after=None):
+        probe = self
+
+        def wrapped(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            probe._sync(out)
+            walls.append(time.perf_counter() - t0)
+            if after is not None:
+                after(out)
+            if logits is not None:
+                lg = out[0] if isinstance(out, tuple) else out
+                probe.finite &= bool(torch.isfinite(lg.float()).all())
+                if probe.keep_all or not logits:
+                    logits.append(lg.detach().float().cpu())
+            return out
+        return wrapped
+
+    def __enter__(self):
+        self.real = (step_lib.make_prefill_step, step_lib.make_decode_step,
+                     model_registry.PagedStateStore.gather_dense,
+                     model_registry.PagedStateStore.scatter_dense)
+        real_pre, real_dec, real_g, real_s = self.real
+        probe = self
+
+        def first_token(out):
+            if probe.ttft_s is None:
+                probe.ttft_s = time.perf_counter() - probe.t0
+
+        def make_prefill(*a, **kw):
+            return probe._timed(real_pre(*a, **kw), probe.prefill_s,
+                                probe.prefill_logits, first_token)
+
+        def make_decode(*a, **kw):
+            timed = probe._timed(real_dec(*a, **kw), probe.decode_s,
+                                 probe.decode_logits)
+
+            def decode(*args):
+                probe.n_decode += 1
+                if probe.n_decode == probe.profile_call:
+                    out = []
+                    profile_step(lambda: out.append(timed(*args)),
+                                 label=f"{probe.label} decode step "
+                                       f"{probe.profile_call}")
+                    probe.decode_s.pop()      # the profiled call's wall
+                    return out[0]
+                return timed(*args)
+            return decode
+
+        step_lib.make_prefill_step = make_prefill
+        step_lib.make_decode_step = make_decode
+        store = model_registry.PagedStateStore
+        store.gather_dense = lambda obj, *a: self._timed(
+            lambda *x: real_g(obj, *x), self.gather_s, None)(*a)
+        store.scatter_dense = lambda obj, *a: self._timed(
+            lambda *x: real_s(obj, *x), self.scatter_s, None)(*a)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        (step_lib.make_prefill_step, step_lib.make_decode_step,
+         model_registry.PagedStateStore.gather_dense,
+         model_registry.PagedStateStore.scatter_dense) = self.real
+
+
+def med_ms(walls) -> float:
+    return statistics.median(walls) * 1e3 if walls else float("nan")
+
+
+def top2_margin(logits: torch.Tensor) -> float:
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def first_difference(a: np.ndarray, b: np.ndarray):
+    """(row, step) of the first token where ``a`` and ``b`` differ, the
+    earliest step first."""
+    diff = np.argwhere(a != b)
+    if not len(diff):
+        return None
+    r, t = min(map(tuple, diff), key=lambda rt: (rt[1], rt[0]))
+    return int(r), int(t)
+
+
+def serve_logits_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max |got - want| over max(1, max |want|): the CPU tests' measure."""
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+
+
+def serve_inputs(cfg, batch: int, seq: int, seed: int, dtype) -> dict:
+    rng = np.random.default_rng(seed)
+    n = seq - cfg.n_vision_tokens if cfg.frontend == "vit_patches" else seq
+    out = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (batch, n), dtype=np.int32))}
+    if cfg.frontend == "vit_patches":
+        out["patches"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.n_vision_tokens, model_tf.VIT_HIDDEN),
+            dtype=np.float32)).to(dtype)
+    if cfg.frontend == "audio_frames":
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (batch, seq, model_tf.AUDIO_HIDDEN), dtype=np.float32)).to(dtype)
+    return out
+
+
+def on(tree, dev):
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def phase_serve_families(seed: int, dev) -> None:
+    """Each family's smoke model in f32, the card against the CPU: prefill
+    logits and the first decode step's from the same cache within the CPU
+    tests' f32 bar; greedy tokens equal (or, where they differ, the CPU's
+    top-2 margin at the first difference under the bar); hubert through
+    the encode step. Then the reference's bit-equal properties on the
+    card: a ragged row equals a solo run, slots equal batch, an evicted
+    request equals an uncontended run, paged equals unpaged."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = torch.device("cpu")
+    for arch in MODEL_FAMILY_ARCHS:
+        cfg = smoke_config(arch)
+        p_c = tree_map(lambda t: t.float(),
+                       model_tf.init_params(cfg, seed=seed, device=cpu))
+        p_d = on(p_c, dev)
+        batch = serve_inputs(cfg, 2, 16 if arch == "hubert-xlarge" else 8,
+                             seed, torch.float32)
+        if arch == "hubert-xlarge":
+            enc_c = step_lib.make_encode_step(cfg)(p_c, batch)
+            enc_d = step_lib.make_encode_step(cfg)(p_d, on(batch, dev))
+            err = serve_logits_err(enc_d, enc_c)
+            print(f"serve/{arch} smoke f32 encode, card against CPU: "
+                  f"logits {tuple(enc_d.shape)} err {err} of scale (bar "
+                  f"{SERVE_F32_TOL})")
+            assert err <= SERVE_F32_TOL, (arch, err)
+            continue
+        lg_c, c_c = step_lib.make_prefill_step(cfg)(p_c, batch)
+        lg_d, _ = step_lib.make_prefill_step(cfg)(p_d, on(batch, dev))
+        pre_err = serve_logits_err(lg_d, lg_c)
+        total = batch["tokens"].shape[1] + 4 + cfg.n_vision_tokens
+        c_c = serve.grow_cache(c_c, model_tf.abstract_cache(cfg, 2, total))
+        tok = torch.argmax(lg_c, -1).to(torch.int32)[:, None]
+        dbatch = {"tokens": tok, "pos": torch.tensor(total - 4,
+                                                     dtype=torch.int32)}
+        dl_c, _ = step_lib.make_decode_step(cfg, total)(p_c, c_c, dbatch)
+        dl_d, _ = step_lib.make_decode_step(cfg, total)(
+            p_d, on(c_c, dev), on(dbatch, dev))
+        dec_err = serve_logits_err(dl_d, dl_c)
+        line = (f"serve/{arch} smoke f32, card against CPU: prefill logits "
+                f"err {pre_err}, first decode step {dec_err} of scale (bar "
+                f"{SERVE_F32_TOL})")
+        assert pre_err <= SERVE_F32_TOL and dec_err <= SERVE_F32_TOL, \
+            (arch, pre_err, dec_err)
+        if cfg.frontend == "vit_patches":
+            print(line + "; generate needs no patches: not served whole")
+            continue
+        prompts = np.random.default_rng(seed + 1).integers(
+            0, cfg.vocab, (3, 10), dtype=np.int32)
+        with ServeProbe(arch, keep_all=True) as probe:
+            out_c = serve.generate(cfg, p_c, prompts, max_new=8)
+        out_d = serve.generate(cfg, p_d, prompts, max_new=8)
+        first = first_difference(out_d, out_c)
+        if first is None:
+            print(line + f"; greedy tokens equal ({out_d.size} tokens)")
+        else:
+            r, t = first
+            lg = probe.prefill_logits[0] if t == 0 \
+                else probe.decode_logits[t - 1]
+            margin = top2_margin(lg[r])
+            scale = max(1.0, float(lg.abs().max()))
+            print(line + f"; greedy tokens differ first at row {r} step "
+                  f"{t}: the CPU's top-2 margin there {margin} "
+                  f"({margin / scale} of scale, bar {SERVE_F32_TOL})")
+            assert margin / scale <= SERVE_F32_TOL, (arch, margin, scale)
+
+    cfg = smoke_config(SERVE_ARCH)
+    p_d = on(tree_map(lambda t: t.float(),
+                      model_tf.init_params(cfg, seed=seed, device=cpu)), dev)
+    prompts = np.random.default_rng(seed + 2).integers(
+        0, cfg.vocab, (4, 12), dtype=np.int32)
+    lens = np.array([7, 12, 9, 11], np.int32)
+    golden = serve.generate(cfg, p_d, prompts, max_new=8, prompt_lens=lens)
+    solo = np.stack([serve.generate(cfg, p_d, prompts[i:i + 1, :n],
+                                    max_new=8)[0]
+                     for i, n in enumerate(lens)])
+    slots = serve.generate(cfg, p_d, prompts, max_new=8, prompt_lens=lens,
+                           stream="slots", slots=2)
+    prios = np.array([1, 1, 0, 0], np.int32)
+    evicted = serve.generate(cfg, p_d, prompts, max_new=8, prompt_lens=lens,
+                             workers=2, slots=2, evict="priority",
+                             priorities=prios)
+    n_evict = serve._generate_fanin.last_stats["evictions"]
+    paged = serve.generate(cfg, p_d, prompts, max_new=8, prompt_lens=lens,
+                           workers=2, slots=2, evict="priority",
+                           priorities=prios, paged=True, page_size=4)
+    checks = {"ragged rows = solo runs": bool((golden == solo).all()),
+              "slots = batch": bool((slots == golden).all()),
+              "evicted = uncontended": bool((evicted == golden).all()),
+              "paged = unpaged": bool((paged == evicted).all())}
+    print(f"serve/{SERVE_ARCH} smoke f32 on the card, the reference's "
+          f"properties: {json.dumps(checks)} ({n_evict} evictions)")
+    assert all(checks.values()) and n_evict > 0, checks
+
+
+def cache_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def serve_modes(page: int, prios: np.ndarray) -> list:
+    fan = dict(workers=SERVE_WORKERS, slots=SERVE_SLOTS, evict="priority",
+               priorities=prios)
+    return [("batch bf16", dict(kv_storage="bf16")),
+            ("batch int8", dict(kv_storage="int8")),
+            ("batch f8", dict(kv_storage="f8")),
+            ("slots bf16", dict(stream="slots", slots=SERVE_SLOTS)),
+            ("slots int8", dict(stream="slots", slots=SERVE_SLOTS,
+                                cache_transfer="int8")),
+            ("fanin", fan),
+            ("fanin paged", dict(fan, paged=True, page_size=page))]
+
+
+def resident_bytes(cfg, kw: dict, stats: dict) -> tuple:
+    """The cache's bytes as it is stored in this mode (for the paged table
+    its fully backed pool), and of its scale leaves."""
+    st = kw.get("kv_storage", "bf16")
+    if kw.get("paged"):
+        return stats["dense_hbm_bytes_per_slot"] * SERVE_SLOTS, 0
+    rows = SERVE_SLOTS if "slots" in kw else SERVE_BATCH
+    c = model_tf.abstract_cache(cfg, rows, SERVE_BUFFER + SERVE_NEW,
+                                kv_storage=st)
+    return (sum(l.nbytes for l in c.values()),
+            sum(l.nbytes for k, l in c.items() if k.endswith("_scale")))
+
+
+def check_published(cfg) -> None:
+    """Granite-3-8B as published (src/repro/configs/granite_3_8b.py)."""
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.tie_embeddings) == \
+        (40, 4096, 32, 8, 128, 12800, 49155, True), cfg
+
+
+def phase_serve_full_width(args, dev, smi: str) -> None:
+    """Granite-3-8B at full width in bf16, weights from ``init_params``
+    drawn on the card: 8 requests of 512-2048 tokens in a 2048-token
+    buffer, 64 new tokens greedy, through each serving mode, each timed
+    end to end, with one decode step profiled; then the gates."""
+    cfg = get_config(SERVE_ARCH)
+    check_published(cfg)
+    t0 = time.perf_counter()
+    params = model_tf.init_params(cfg, seed=args.seed, device=dev,
+                                  draw_on_device=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(args.seed)
+    lens = rng.integers(SERVE_LEN_RANGE[0], SERVE_LEN_RANGE[1] + 1,
+                        SERVE_BATCH).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab, (SERVE_BATCH, SERVE_BUFFER),
+                           dtype=np.int32)
+    prios = (np.arange(SERVE_BATCH) % SERVE_CLASSES).astype(np.int32)
+    total = SERVE_BUFFER + SERVE_NEW
+    swept = tuned_page_size(DECODE_32K_SEQ, batch=SERVE_BATCH,
+                            heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+                            head_dim=cfg.head_dim)
+    print(f"serve/{SERVE_ARCH} bf16 full width ({cfg.n_layers} x "
+          f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, "
+          f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"tied; {n_params} parameters, {n_params * 2} bytes, drawn on the "
+          f"card in {init_s} s; {smi}): {SERVE_BATCH} requests, lengths "
+          f"{lens.tolist()} in a {SERVE_BUFFER}-token buffer, {SERVE_NEW} "
+          f"new tokens greedy, horizon {total}; the paged_attn page phase "
+          f"6's sweep left: {swept}")
+    t0 = time.perf_counter()
+    serve.generate(cfg, params, prompts[:2], max_new=2, prompt_lens=lens[:2])
+    torch.cuda.synchronize()
+    print(f"serve/{SERVE_ARCH} warm-up (2 requests, 2 new tokens, "
+          f"untimed below): {time.perf_counter() - t0} s")
+    outs, first_dec, first_pre, by_mode = {}, {}, {}, {}
+    for mode, kw in serve_modes(swept, prios):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        label = f"serve/{SERVE_ARCH} {mode}"
+        with ServeProbe(label, profile_call=SERVE_PROFILE_CALL) as probe:
+            t0 = time.perf_counter()
+            out = serve.generate(cfg, params, prompts, max_new=SERVE_NEW,
+                                 prompt_lens=lens, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / (1 << 30)
+        outs[mode] = out
+        first_dec[mode] = probe.decode_logits[0]
+        first_pre[mode] = probe.prefill_logits[0]
+        stats = {}
+        if "workers" in kw:
+            stats = dict(serve._generate_fanin.last_stats)
+        elif kw.get("stream") == "slots":
+            stats = dict(serve._generate_slots.last_stats)
+        by_mode[mode] = stats
+        n_pre_tok = stats.get("admissions", SERVE_BATCH)
+        dec_tok = out.size - n_pre_tok
+        dec_s = sum(probe.decode_s)
+        stored, scales = resident_bytes(cfg, kw, stats)
+        paged = ""
+        if probe.gather_s:
+            paged = (f"; paged gather {med_ms(probe.gather_s)} ms, scatter "
+                     f"{med_ms(probe.scatter_s)} ms a step (medians)")
+        print(f"{label}: end to end {wall} s; prefill {len(probe.prefill_s)}"
+              f" calls, the first {probe.prefill_s[0] * 1e3} ms, median "
+              f"{med_ms(probe.prefill_s)} ms, time to the first token "
+              f"{probe.ttft_s} s; decode {probe.n_decode} steps, "
+              f"median {med_ms(probe.decode_s)} ms, {dec_tok / dec_s} decode"
+              f" tokens/s; peak {peak} GiB; cache as stored {stored} bytes "
+              f"({scales} of scales){paged}; stats {json.dumps(stats)}")
+        assert probe.finite, (mode, "a logit is not finite")
+        assert out.shape == (SERVE_BATCH, SERVE_NEW) and \
+            ((out >= 0) & (out < cfg.vocab)).all(), mode
+    # ---- gates ---------------------------------------------------------
+    same = bool((outs["fanin paged"] == outs["fanin"]).all())
+    print(f"serve/{SERVE_ARCH} paged fan-in tokens bit-equal to unpaged "
+          f"fan-in: {same}")
+    assert same
+    for st, bar in STORAGE_BARS.items():
+        err = serve_logits_err(first_dec[f"batch {st}"],
+                               first_dec["batch bf16"])
+        print(f"serve/{SERVE_ARCH} {st} storage, first decode step's logits "
+              f"against bf16: {err} of scale (bar {bar})")
+        assert err <= bar, (st, err)
+    b16, _ = resident_bytes(cfg, {"kv_storage": "bf16"}, {})
+    i8, i8s = resident_bytes(cfg, {"kv_storage": "int8"}, {})
+    f8, _ = resident_bytes(cfg, {"kv_storage": "f8"}, {})
+    print(f"serve/{SERVE_ARCH} cache bytes at {SERVE_BATCH} x {total}: "
+          f"bf16 {b16}, int8 {i8} ({i8s} of scales), f8 {f8}")
+    assert i8 - i8s == b16 // 2 and i8 < b16 and f8 * 2 == b16
+    print(f"serve/{SERVE_ARCH} contended fan-in evictions: "
+          f"{by_mode['fanin']['evictions']} unpaged, "
+          f"{by_mode['fanin paged']['evictions']} paged")
+    assert by_mode["fanin"]["evictions"] > 0
+    # each ragged row's prefill logits against a solo prefill of its prompt
+    prefill = step_lib.make_prefill_step(cfg)
+    worst = 0.0
+    for i, n in enumerate(lens):
+        lg, _ = prefill(params, {"tokens": torch.from_numpy(
+            prompts[i:i + 1, :n]).to(dev)})
+        worst = max(worst, row_rel_err(first_pre["batch bf16"][i][None],
+                                       lg.float().cpu()))
+    print(f"serve/{SERVE_ARCH} ragged rows' prefill logits against solo "
+          f"prefills: worst {worst} of the row's scale (bar "
+          f"{ROW_REL_BAR[torch.bfloat16]})")
+    assert worst <= ROW_REL_BAR[torch.bfloat16], worst
+    base = outs["batch bf16"]
+    agree = {m: float((o == base).all(axis=1).mean()) for m, o in outs.items()}
+    print(f"serve/{SERVE_ARCH} rows whose tokens equal batch bf16's "
+          f"(printed, not gated: the modes run other shapes): "
+          f"{json.dumps(agree)}")
+    del params
+
+
+def phase_serve_f8(dev) -> None:
+    """``cast_f8`` over all 65,536 bf16 bit patterns, card against CPU."""
+    pats = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    x = pats.view(torch.bfloat16)
+    got = coll.cast_f8(x.to(dev)).cpu()
+    want = coll.cast_f8(x)
+    same = same_bits(got, want)
+    print(f"serve/cast_f8 over all 65536 bf16 patterns, card against CPU: "
+          f"bytes equal {same}")
+    assert same
+
+
+def phase_serve(args, dev, smi: str) -> None:
+    """Phase 11: serving on the card. No registry kernel lies on this
+    path (the reference's model calls none), so every launch count stays
+    0."""
+    walls = {}
+    kern.reset_launches()
+    reset_sweep_launches()
+    for part, fn in (("families", lambda: phase_serve_families(args.seed, dev)),
+                     ("full width", lambda: phase_serve_full_width(args, dev,
+                                                                   smi)),
+                     ("cast_f8", lambda: phase_serve_f8(dev))):
+        t0 = time.perf_counter()
+        fn()
+        walls[part] = time.perf_counter() - t0
+    launches = {**dict(kern.LAUNCHES), **sweep_launches()}
+    print(f"serve: launches {json.dumps(launches)} (no kernel on the path); "
+          f"phase wall {sum(walls.values())} s, by part (s) "
+          f"{json.dumps(walls)}")
+    assert not any(launches.values()), launches
+
+
 def main() -> int:
     args = parse_args()
     if not torch.cuda.is_available():
@@ -2211,6 +2668,9 @@ def main() -> int:
     reduced["fleet/corpus shards per write x"] = FLEET_FACTOR
     reduced["model/train micro-batch (train_4k: 32)"] = args.model_batch
     reduced["train/step_4k micro-batch (train_4k: 32)"] = args.model_batch
+    reduced["serve/granite-3-8b batch (decode_32k: 128)"] = SERVE_BATCH
+    reduced["serve/granite-3-8b horizon (decode_32k: 32768)"] = \
+        f"<= {SERVE_BUFFER + SERVE_NEW}"
     print(f"reduced: {json.dumps(reduced)}")
     tuned_dir = tempfile.mkdtemp(prefix="chip_smoke_tuned_")
     os.environ["REPRO_TORCH_TUNED_DIR"] = tuned_dir
@@ -2249,6 +2709,9 @@ def main() -> int:
             if k["name"] == "compact_chunks":
                 k["launches_by_path"]["train"] = train_chunks
                 k["launches"] += train_chunks
+        phase_serve(args, dev, smi)
+        for k in kernels:
+            k.setdefault("launches_by_path", {})["serve"] = 0
     finally:
         shutil.rmtree(tuned_dir, ignore_errors=True)
     print(json.dumps({"kernels": kernels}))

@@ -8,12 +8,16 @@ none of it. Ported layers:
   repro_torch.kernels  -- hand-written CUDA kernels for Hopper (sm_90a),
                           each with a plain PyTorch version
   repro_torch.configs  -- the architecture configs (copies of the reference's)
-  repro_torch.dist     -- sharding and the int8 gradient quantizers, single
-                          device for now
-  repro_torch.models   -- the training math of all seven families, forward
-                          and backward, and the weights' carry-over
-  repro_torch.train    -- AdamW, the train step, checkpoints, the Trainer
-  repro_torch.launch   -- the training launcher on one device
+                          and the assigned input shapes
+  repro_torch.dist     -- sharding, the int8 gradient and serve quantizers,
+                          the f8 cast and the fan-in arbiter, single device
+                          for now
+  repro_torch.models   -- all seven families, training and serving, the
+                          decode-state stores, and the weights' and caches'
+                          carry-over
+  repro_torch.train    -- AdamW, the train and serve steps, checkpoints, the
+                          Trainer
+  repro_torch.launch   -- the training and serving launchers on one device
 """
 
 __version__ = "0.1.0"

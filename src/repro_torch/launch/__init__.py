@@ -1,2 +1,3 @@
-"""Entry points of the port: the training launcher (``launch/train.py``)
-and the one-device mesh it runs on (``launch/mesh.py``)."""
+"""Entry points of the port: the training launcher (``launch/train.py``),
+the serving launcher (``launch/serve.py``) and the one-device mesh they
+run on (``launch/mesh.py``)."""

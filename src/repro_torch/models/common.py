@@ -22,11 +22,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives
 from repro_torch.dist.sharding import constrain
 
 PyTree = Any
 
 DEFAULT_PARAM_DTYPE = torch.bfloat16
+COMPUTE_DTYPE = torch.bfloat16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,8 +126,9 @@ def resolve_device(device: Union[str, torch.device, None],
 
 def materialize(spec: Spec, gen: torch.Generator,
                 device: torch.device) -> torch.Tensor:
-    """One leaf. Draws come from ``gen`` on the host, so a seed gives the
-    same values on every device; they are not ``jax.random``'s."""
+    """One leaf. Draws come from ``gen`` on its device (the host unless
+    the caller asks otherwise, so that a seed gives the same values on
+    every device); they are not ``jax.random``'s."""
     dtype = spec.dtype or DEFAULT_PARAM_DTYPE
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=device)
@@ -134,12 +137,14 @@ def materialize(spec: Spec, gen: torch.Generator,
     # fan-in scaled normal; last axis treated as fan-out
     fan_in = int(np.prod(spec.shape[:-1])) if len(spec.shape) > 1 else spec.shape[0]
     scale = 0.02 if spec.init == "small" else 1.0 / np.sqrt(max(fan_in, 1))
-    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32) * scale
+    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                    device=gen.device) * scale
     return x.to(device=device, dtype=dtype)
 
 
-def tree_init(specs: PyTree, seed: int, device: torch.device) -> PyTree:
-    gen = torch.Generator().manual_seed(seed)
+def tree_init(specs: PyTree, seed: int, device: torch.device,
+              draw_on_device: bool = False) -> PyTree:
+    gen = torch.Generator(device if draw_on_device else "cpu").manual_seed(seed)
     leaves = tree_leaves(specs, is_spec)
     by_id = {id(s): materialize(s, gen, device) for s in leaves}
     return tree_map(lambda s: by_id[id(s)], specs, is_leaf=is_spec)
@@ -150,14 +155,6 @@ def stack_layer_specs(layer_specs: PyTree, n_layers: int) -> PyTree:
     return tree_map(
         lambda s: Spec((n_layers,) + s.shape, ("layers",) + s.axes, s.dtype, s.init),
         layer_specs, is_leaf=is_spec)
-
-
-def require_train(mode: str, who: str) -> None:
-    """This slice ports the training path; the other modes raise."""
-    if mode != "train":
-        raise NotImplementedError(
-            f"{who}: mode={mode!r} comes with single-device serving "
-            "(ROADMAP queue 1, item 2); this slice ports mode='train'")
 
 
 # ---------------------------------------------------------------------------
@@ -248,18 +245,31 @@ def blockwise_attention(q, k, v, *, causal=True, window=0,
     Every (q tile, kv tile) pair is computed, masked or not, in the
     reference's order: the online softmax over kv tiles inside each q
     tile, f32 scores, ``NEG_INF`` for masked entries.
+
+    A length longer than its block and not a multiple of it, which the
+    reference refuses (an ``assert``), pads its last tile: padded keys
+    carry position -1, so the mask sends them to ``NEG_INF`` and they add
+    exactly 0, and padded query rows are dropped. A length the reference
+    serves is tiled as the reference tiles it.
     """
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     scale = 1.0 / np.sqrt(d)
     bq = min(block_q, sq)
     bk = min(block_k, sk)
-    nq, nk = sq // bq, sk // bk
-    assert sq % bq == 0 and sk % bk == 0, (sq, bq, sk, bk)
     dev = q.device
     if k_positions is None:
         k_positions = torch.arange(sk, dtype=torch.int32, device=dev)
-    q_pos = q_offset + torch.arange(sq, dtype=torch.int32, device=dev)
+    pad_q, pad_k = (-sq) % bq, (-sk) % bk
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+        k_positions = torch.cat([k_positions, torch.full(
+            (pad_k,), -1, dtype=k_positions.dtype, device=dev)])
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    nq, nk = (sq + pad_q) // bq, (sk + pad_k) // bk
+    q_pos = q_offset + torch.arange(sq + pad_q, dtype=torch.int32, device=dev)
 
     dv = v.shape[-1]
     group = h // hkv
@@ -290,8 +300,55 @@ def blockwise_attention(q, k, v, *, causal=True, window=0,
         return constrain(out.to(q.dtype), "batch", None, "heads", None)
 
     if nq == 1:
-        return q_step(0)
-    return torch.cat([q_step(qi) for qi in range(nq)], dim=1)
+        return q_step(0)[:, :sq]
+    return torch.cat([q_step(qi) for qi in range(nq)], dim=1)[:, :sq]
+
+
+def as_positions(pos, device) -> torch.Tensor:
+    """A scalar or per-row ``(B,)`` position as an int32 tensor."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int32)
+    return torch.as_tensor(np.asarray(pos, np.int32), device=device)
+
+
+def decode_attention(q, k_cache, v_cache, k_positions, pos,
+                     k_scale=None, v_scale=None):
+    """Single-token attention against a cache. q:(B,1,H,D), caches (B,S,Hkv,D).
+
+    ``k_positions``: (S,) or per-row (B,S) absolute slot positions (-1
+    invalid); ``pos``: scalar or per-row (B,) current position. Per-row
+    forms are the continuous-batching case: every request sits at its own
+    position and padded or stale slots are masked row-wise.
+
+    ``k_scale``/``v_scale`` (B,S,Hkv,nb) mark an int8-resident cache,
+    dequantized here per block; an f8-resident cache arrives without
+    scales and is upcast here. The scores and the weighted sum are f32
+    einsums, as in the reference.
+    """
+    if k_scale is not None:
+        k_cache = collectives.dequantize_int8_lastdim(k_cache, k_scale)
+        v_cache = collectives.dequantize_int8_lastdim(v_cache, v_scale)
+    elif k_cache.dtype == collectives.F8_DTYPE:
+        k_cache = collectives.uncast_f8(k_cache)
+        v_cache = collectives.uncast_f8(v_cache)
+    b, _, h, d = q.shape
+    hkv = k_cache.shape[2]
+    dv = v_cache.shape[-1]
+    group = h // hkv
+    scale = 1.0 / np.sqrt(d)
+    qg = q.reshape(b, hkv, group, d).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float()) * scale
+    pos_b = as_positions(pos, q.device).expand(b)
+    kp = as_positions(k_positions, q.device)
+    if kp.ndim == 1:
+        kp = kp[None, :]
+    valid = (kp >= 0) & (kp <= pos_b[:, None])          # (B or 1, S) -> (B,S)
+    valid = valid.expand(b, k_cache.shape[1])
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    s = constrain(s, "batch", "kv_heads", None, "kv_seq")
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    return o.reshape(b, 1, h, dv).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Carry the JAX package's parameters into this package's tree.
+"""Carry the JAX package's parameters and decode caches into this
+package's trees.
 
 ``params_from_jax`` takes the reference's ``init_params`` tree as numpy
 arrays -- ``jax.tree.map(np.asarray, params)`` -- and returns the port's
@@ -7,6 +8,12 @@ an xLSTM ``blocks`` list), so this is a pure tensor conversion, and
 dtypes are kept. A bfloat16 leaf arrives as an ``ml_dtypes`` array, which
 ``torch.from_numpy`` rejects; it crosses as its 16 raw bits, so no
 ``ml_dtypes`` import is needed and the values are bit-equal.
+
+``cache_from_jax`` does the same for a decode cache or a state table
+(``jax.tree.map(np.asarray, cache)``): bf16 leaves cross as their raw 16
+bits, f8 (e4m3fn) leaves as their raw bytes, int8, int32 and f32 leaves as
+they are, so a test can start the port from the reference's exact state
+and compare caches bit for bit.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ def to_torch(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     arr = np.array(arr)                       # owned, writable, contiguous
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    elif arr.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(arr.view(np.uint8)).view(torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(arr)
     return t.to(device)
@@ -51,3 +60,11 @@ def params_from_jax(cfg: ModelConfig, tree: Any, *,
 
     tree = tree_map(check, param_specs(cfg), tree, is_leaf=is_spec)
     return tree_from_numpy(tree, device)
+
+
+def cache_from_jax(tree: Any, *,
+                   device: Union[str, torch.device, None] = None) -> Any:
+    """The reference's decode cache (numpy leaves, a flat dict or the
+    xLSTM ``{"blocks": [...]}``) as the port's, leaf for leaf and bit for
+    bit, on the card unless ``device`` names another."""
+    return tree_from_numpy(tree, resolve_device(device, "cache_from_jax"))

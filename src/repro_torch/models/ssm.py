@@ -1,16 +1,17 @@
 """Selective SSM (Mamba-style) head used by the Hymba hybrid layer.
 
-The port of ``src/repro/models/ssm.py``, training path. The (B, c, di, N)
-state tensors are built one chunk of ``CHUNK`` positions at a time, so
-peak memory is O(B * CHUNK * di * N) instead of O(B * S * di * N).
+The port of ``src/repro/models/ssm.py``. The (B, c, di, N) state tensors
+are built one chunk of ``CHUNK`` positions at a time, so peak memory is
+O(B * CHUNK * di * N) instead of O(B * S * di * N). Decode is the exact
+single-step recurrence with O(1) state: the conv tail (B, conv-1, di) and
+the SSM state (B, di, N).
 
 Within a chunk the reference runs ``jax.lax.associative_scan``, which
 torch lacks. Here the same linear recurrence h_t = a_t * h_{t-1} + b_t
 runs as a Hillis-Steele scan: log2(chunk) doubling steps, each composing
 every position with the one ``step`` places before it. The pairs are
 combined in another order than the reference's, so f32 results agree to
-rounding, not bit for bit. The decode recurrence and the prefill cache
-come with serving.
+rounding, not bit for bit.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
 from repro_torch.dist.sharding import constrain
-from repro_torch.models.common import Spec, einsum, require_train
+from repro_torch.models.common import Spec, einsum
 
 DT_RANK = 16
 CHUNK = 256
@@ -88,16 +89,28 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.T
 
 def ssm_apply(cfg: ModelConfig, p, x: torch.Tensor, mode: str,
               cache: Optional[dict]) -> Tuple[torch.Tensor, Optional[dict]]:
-    """x: (B,S,d). Training only: returns (y, None)."""
-    require_train(mode, "ssm_apply")
+    """x: (B,S,d). cache: {"conv": (B,K-1,di), "ssm": (B,di,N)} for decode."""
     proj = constrain(einsum("bsd,dzi->bszi", x, p["in_proj"]),
                      "batch", None, None, "ssm_inner")
     xin, z = proj[:, :, 0], proj[:, :, 1]
-    xc, _ = _causal_conv(p, xin, None)
-    y, _ = _chunked_ssm(cfg, p, xc)
+
+    if mode == "decode":
+        xc, conv_state = _causal_conv(p, xin, cache["conv"])
+        da, dbx, cmat = _ssm_inputs(cfg, p, xc)
+        h = cache["ssm"].float() * da[:, 0] + dbx[:, 0]          # (B,di,N)
+        y = torch.einsum("bin,bn->bi", h, cmat[:, 0])[:, None]
+        new_cache = {"conv": conv_state.to(cache["conv"].dtype),
+                     "ssm": h.to(cache["ssm"].dtype)}
+    else:
+        xc, conv_tail = _causal_conv(p, xin, None)
+        y, h_last = _chunked_ssm(cfg, p, xc)
+        new_cache = None
+        if mode == "prefill":
+            new_cache = {"conv": conv_tail.to(torch.bfloat16),
+                         "ssm": h_last.to(torch.bfloat16)}
     y = y + xc.float() * p["d_skip"]
     y = (y * F.silu(z.float())).to(x.dtype)
-    return einsum("bsi,id->bsd", y, p["out_proj"]), None
+    return einsum("bsi,id->bsd", y, p["out_proj"]), new_cache
 
 
 def _chunked_ssm(cfg, p, xc):
@@ -118,3 +131,17 @@ def _chunked_ssm(cfg, p, xc):
                             "batch", None, "ssm_inner"))         # (B,c,di)
         h0 = h[:, -1]
     return torch.cat(ys, dim=1), h0
+
+
+def ssm_cache_shape(cfg: ModelConfig, batch: int):
+    di = cfg.ssm_expand * cfg.d_model
+    return {"conv": (batch, cfg.ssm_conv - 1, di),
+            "ssm": (batch, di, cfg.ssm_state)}
+
+
+def ssm_cache_axes():
+    """Logical axes of the O(1) recurrent SSM state (the stack prepends
+    its "layers" axis). No ``kv_seq`` axis: slot streaming admits these
+    leaves as whole-row overwrites."""
+    return {"conv": ("batch", None, "ssm_inner"),
+            "ssm": ("batch", "ssm_inner", "ssm_state")}

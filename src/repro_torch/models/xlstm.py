@@ -1,10 +1,11 @@
 """xLSTM blocks: mLSTM (matrix memory, chunkwise-parallel training form) and
 sLSTM (scalar memory, exact recurrent scan), per arXiv:2405.04517.
 
-The port of ``src/repro/models/xlstm.py``, training path. Block-diagonal
-(per-head) q/k/v and recurrent projections follow the official block
-design. All recurrences are numerically stabilized with a running max
-state m. The decode steps and their caches come with serving.
+The port of ``src/repro/models/xlstm.py``. Block-diagonal (per-head)
+q/k/v and recurrent projections follow the official block design. All
+recurrences are numerically stabilized with a running max state m. Decode
+state is O(1) per token: the mLSTM's C, n, m and conv tail, the sLSTM's
+h, c, n, m.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models import common
-from repro_torch.models.common import Spec, einsum, require_train
+from repro_torch.models.common import Spec, einsum
 
 CHUNK = 256
 NEG = -1e30
@@ -113,7 +114,6 @@ def _mlstm_chunk(carry, blk):
 
 def mlstm_apply(cfg: ModelConfig, p, x, mode: str, cache: Optional[dict]
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    require_train(mode, "mlstm_apply")
     b, s, d = x.shape
     hh = cfg.n_heads
     di = int(cfg.proj_factor_mlstm * d)
@@ -121,30 +121,67 @@ def mlstm_apply(cfg: ModelConfig, p, x, mode: str, cache: Optional[dict]
     xn = common.rms_norm(x, p["ln"], cfg.norm_eps)
     proj = einsum("bsd,dzi->bszi", xn, p["w_up"])
     xm, z = proj[:, :, 0], proj[:, :, 1]
-    # causal conv (kernel 4) on the mlstm branch
+    # causal conv (kernel 4) on the mlstm branch; decode carries the tail
     k4 = p["conv_w"].shape[0]
-    pad = torch.zeros((b, k4 - 1, di), dtype=xm.dtype, device=x.device)
+    if mode == "decode" and cache is not None:
+        pad = cache["conv"].to(xm.dtype)
+    else:
+        pad = torch.zeros((b, k4 - 1, di), dtype=xm.dtype, device=x.device)
     xp = torch.cat([pad, xm], dim=1)
+    conv_tail = xp[:, -(k4 - 1):]
     xc = F.silu(sum(xp[:, i:i + s] * p["conv_w"][i] for i in range(k4)))
     q, k, v, i_pre, f_pre = _mlstm_qkvif(cfg, p, xc, xm)
 
-    c = min(CHUNK, s)
-    assert s % c == 0
-    dev = x.device
-    carry = (torch.zeros((b, hh, dh, dh), dtype=torch.float32, device=dev),
-             torch.zeros((b, hh, dh), dtype=torch.float32, device=dev),
-             torch.zeros((b, hh), dtype=torch.float32, device=dev))
-    ys = []
-    for ci in range(s // c):
-        sl = slice(ci * c, (ci + 1) * c)
-        carry, y = _mlstm_chunk(carry, tuple(t[:, sl] for t in
-                                             (q, k, v, i_pre, f_pre)))
-        ys.append(y)
-    y = torch.cat(ys, dim=1)
+    if mode == "decode":
+        C, n, m = cache["C"].float(), cache["n"].float(), cache["m"].float()
+        logf = _logsig(f_pre[:, 0])
+        m_new = torch.maximum(logf + m, i_pre[:, 0])
+        fs = torch.exp(logf + m - m_new)[..., None, None]
+        is_ = torch.exp(i_pre[:, 0] - m_new)[..., None, None]
+        kf = k[:, 0].float()
+        vf = v[:, 0].float()
+        C_new = fs * C + is_ * torch.einsum("bhd,bhe->bhde", kf, vf)
+        n_new = fs[..., 0] * n + is_[..., 0] * kf
+        qf = q[:, 0].float()
+        num = torch.einsum("bhd,bhde->bhe", qf, C_new)
+        den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", n_new, qf)),
+                            torch.exp(-m_new))
+        y = (num / den[..., None])[:, None]                      # (B,1,H,dh)
+        new_cache = {"C": C_new.to(cache["C"].dtype),
+                     "n": n_new.to(cache["n"].dtype),
+                     "m": m_new.to(cache["m"].dtype),
+                     "conv": conv_tail.to(cache["conv"].dtype)}
+    else:
+        c = min(CHUNK, s)
+        assert s % c == 0
+        dev = x.device
+        carry = (torch.zeros((b, hh, dh, dh), dtype=torch.float32, device=dev),
+                 torch.zeros((b, hh, dh), dtype=torch.float32, device=dev),
+                 torch.zeros((b, hh), dtype=torch.float32, device=dev))
+        ys = []
+        for ci in range(s // c):
+            sl = slice(ci * c, (ci + 1) * c)
+            carry, y = _mlstm_chunk(carry, tuple(t[:, sl] for t in
+                                                 (q, k, v, i_pre, f_pre)))
+            ys.append(y)
+        y = torch.cat(ys, dim=1)
+        new_cache = None
+        if mode == "prefill":
+            new_cache = {"C": carry[0].float(), "n": carry[1].float(),
+                         "m": carry[2].float(),
+                         "conv": conv_tail.to(torch.bfloat16)}
     y = y.reshape(b, -1, di).to(x.dtype)
     y = common.rms_norm(y, p["out_norm"], cfg.norm_eps)
     y = y * F.silu(z)
-    return x + einsum("bsi,id->bsd", y, p["w_down"]), None
+    return x + einsum("bsi,id->bsd", y, p["w_down"]), new_cache
+
+
+def mlstm_cache_shape(cfg: ModelConfig, batch: int):
+    di = int(cfg.proj_factor_mlstm * cfg.d_model)
+    h = cfg.n_heads
+    dh = di // h
+    return {"C": (batch, h, dh, dh), "n": (batch, h, dh), "m": (batch, h),
+            "conv": (batch, 3, di)}
 
 
 # ---------------------------------------------------------------------------
@@ -276,20 +313,40 @@ def _slstm_sequence(n_heads, r_gates, b_gates, gates_x, state0):
 
 def slstm_apply(cfg: ModelConfig, p, x, mode: str, cache: Optional[dict]
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    require_train(mode, "slstm_apply")
     b, s, d = x.shape
     xn = common.rms_norm(x, p["ln"], cfg.norm_eps)
     gates_in = einsum("bsd,dge->bsge", xn, p["w_gates"])         # (B,S,4,d)
-    zeros = torch.zeros((b, d), dtype=torch.float32, device=x.device)
-    state0 = (zeros, zeros, zeros, zeros)
-    ys, _ = _slstm_sequence(cfg.n_heads, p["r_gates"], p["b_gates"],
-                            gates_in.transpose(0, 1), state0)
-    ys = ys.transpose(0, 1)                                      # (B,S,d)
+    if cache is not None and mode == "decode":
+        state = (cache["h"].float(), cache["c"].float(),
+                 cache["n"].float(), cache["m"].float())
+        h_t, c_t, n_t, m_t = _slstm_cell_raw(cfg.n_heads, p["r_gates"],
+                                             p["b_gates"], gates_in[:, 0],
+                                             state)
+        ys = h_t[:, None]
+        new_cache = {"h": h_t.to(cache["h"].dtype),
+                     "c": c_t.to(cache["c"].dtype),
+                     "n": n_t.to(cache["n"].dtype),
+                     "m": m_t.to(cache["m"].dtype)}
+    else:
+        zeros = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        state0 = (zeros, zeros, zeros, zeros)
+        ys, state = _slstm_sequence(cfg.n_heads, p["r_gates"], p["b_gates"],
+                                    gates_in.transpose(0, 1), state0)
+        ys = ys.transpose(0, 1)                                  # (B,S,d)
+        new_cache = None
+        if mode == "prefill":
+            new_cache = {"h": state[0].float(), "c": state[1].float(),
+                         "n": state[2].float(), "m": state[3].float()}
     x = x + ys.to(x.dtype)
     # post FFN (gated, pf ~4/3)
     xf = common.rms_norm(x, p["ln_ff"], cfg.norm_eps)
     ff = common.swiglu(xf, p["ff_gate"], p["ff_up"], p["ff_down"])
-    return x + ff, None
+    return x + ff, new_cache
+
+
+def slstm_cache_shape(cfg: ModelConfig, batch: int):
+    d = cfg.d_model
+    return {"h": (batch, d), "c": (batch, d), "n": (batch, d), "m": (batch, d)}
 
 
 def is_mlstm_layer(cfg: ModelConfig, idx: int) -> bool:

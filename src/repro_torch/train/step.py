@@ -1,29 +1,36 @@
-"""The train step: microbatched gradients, the gradient transport, AdamW.
+"""Step factories: the train step (microbatched gradients, the gradient
+transport, AdamW) and the serve steps (encode, prefill, decode).
 
-The port of the train half of ``src/repro/train/step.py`` (lines 1-127).
-Gradients come from autograd over the tree's leaves. The step runs where
-the parameters are and returns new trees, as the reference's does.
+The port of ``src/repro/train/step.py``. Gradients come from autograd over
+the tree's leaves. Each step runs where the parameters are and returns new
+trees, as the reference's does. The serve steps enter the activation
+transport and KV storage scopes around every call and run under
+``torch.inference_mode()``.
 
-Waiting for later slices: the explicit data-parallel step
-(``mesh=<...>``, the reference's ``_data_parallel_step``) for the
-multi-GPU slice, ROADMAP queue 1, item 3; the serve steps (prefill, decode,
-encode) for single-device serving.
+Waiting for the multi-GPU slice (ROADMAP queue 1, item 3): the explicit
+data-parallel step (``mesh=<...>``, the reference's
+``_data_parallel_step``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.configs import ModelConfig
+from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.dist import collectives
+from repro_torch.models import registry as model_registry
 from repro_torch.models import transformer
 from repro_torch.models.common import (tree_leaves, tree_map,
                                        tree_unflatten, tree_unzip)
 from repro_torch.train import optimizer as opt_lib
 
 GRAD_TRANSPORTS = ("bf16", "int8_ef")
+ACT_TRANSPORTS = collectives.ACT_TRANSPORTS   # serve steps: ("bf16", "int8")
+KV_STORAGES = collectives.KV_STORAGES         # decode cache residency
+CACHE_TRANSFERS = collectives.CACHE_TRANSFERS # prefill->decode handoff wire
 
 
 def make_loss_fn(cfg: ModelConfig):
@@ -117,3 +124,92 @@ def make_train_step(cfg: ModelConfig, adamw: opt_lib.AdamWConfig,
         return new_params, new_opt, metrics
 
     return train_step
+
+
+def _check_act_transport(act_transport: Optional[str]) -> None:
+    if act_transport is not None and act_transport not in ACT_TRANSPORTS:
+        raise ValueError(f"unknown act_transport {act_transport!r}; "
+                         f"expected one of {ACT_TRANSPORTS}")
+
+
+def make_encode_step(cfg: ModelConfig, act_transport: Optional[str] = "bf16"):
+    """Encoder-only serving: full-sequence unit logits (HuBERT-style)."""
+    _check_act_transport(act_transport)
+
+    @torch.inference_mode()
+    def encode_step(params, batch):
+        with collectives.act_transport_scope(act_transport):
+            logits, _ = transformer.forward(cfg, params, batch, "encode")
+        return logits
+    return encode_step
+
+
+def make_prefill_step(cfg: ModelConfig, act_transport: Optional[str] = "bf16"):
+    """Returns ``prefill_step(params, batch) -> (last-position logits,
+    cache)``.
+
+    ``batch`` may carry ``"last_pos"`` (per-row index of the final prompt
+    token) for ragged continuous batching; without it the logits come from
+    the last sequence position of every row. ``act_transport`` picks the
+    activation all-gather's wire format: ``"bf16"``, ``"int8"`` (the
+    activations rounded through blockwise int8 and back, no error
+    feedback) or ``None`` (no gather boundary).
+    """
+    _check_act_transport(act_transport)
+
+    @torch.inference_mode()
+    def prefill_step(params, batch):
+        with collectives.act_transport_scope(act_transport):
+            logits, cache = transformer.forward(cfg, params, batch, "prefill")
+        return logits, cache
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, cache_len_total: int,
+                     act_transport: Optional[str] = "bf16",
+                     kv_storage: str = "bf16"):
+    """Returns ``decode_step(params, cache, batch) -> (logits, new_cache)``.
+
+    ``batch["pos"]`` is a scalar position or a per-row ``(B,)`` vector
+    (ragged continuous batching). ``kv_storage="int8"`` makes the cache
+    int8-resident: the step expects and emits the layout of
+    ``transformer.abstract_cache(..., kv_storage="int8")`` (s8 value
+    leaves plus f32 ``<leaf>_scale`` leaves), writes each new token
+    quantized per position, and attention dequantizes per block at read
+    time; ``"f8"`` stores scale-free e4m3 leaves instead.
+    """
+    _check_act_transport(act_transport)
+    if kv_storage not in KV_STORAGES:
+        raise ValueError(f"unknown kv_storage {kv_storage!r}; "
+                         f"expected one of {KV_STORAGES}")
+    if kv_storage != "bf16":
+        model_registry.require(cfg, "quantized_storage",
+                               f"kv_storage={kv_storage!r}")
+
+    @torch.inference_mode()
+    def decode_step(params, cache, batch):
+        with collectives.act_transport_scope(act_transport), \
+                collectives.kv_storage_scope(kv_storage):
+            logits, new_cache = transformer.forward(
+                cfg, params, batch, "decode", cache=cache,
+                cache_len_total=cache_len_total)
+        return logits, new_cache
+    return decode_step
+
+
+def step_for_shape(cfg: ModelConfig, shape: ShapeSpec,
+                   adamw: Optional[opt_lib.AdamWConfig] = None,
+                   grad_transport: str = "bf16",
+                   act_transport: str = "bf16",
+                   kv_storage: str = "bf16"):
+    """The step for a given cell, plus its kind."""
+    if shape.kind == "train":
+        return make_train_step(cfg, adamw or opt_lib.AdamWConfig(),
+                               microbatches=shape.microbatches,
+                               grad_transport=grad_transport), "train"
+    if shape.kind == "prefill":
+        if not cfg.supports_decode:      # encoder: no cache semantics
+            return make_encode_step(cfg, act_transport), "encode"
+        return make_prefill_step(cfg, act_transport), "prefill"
+    return make_decode_step(cfg, shape.seq_len, act_transport,
+                            kv_storage), "decode"

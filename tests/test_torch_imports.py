@@ -2,8 +2,9 @@
 alone.
 
 Every module under ``src/repro_torch`` (the model slice's ``configs``,
-``dist`` and ``models``, and the training slice's ``train`` and
-``launch`` included) imports in a fresh interpreter with no Triton and no
+``dist`` and ``models``, the training slice's ``train`` and ``launch``,
+and the serving slice's ``configs.shapes``, ``models.registry``,
+``dist.fanin`` and ``launch.serve`` included) imports in a fresh interpreter with no Triton and no
 CUDA, and leaves neither ``jax``, nor ``ml_dtypes``, nor any module of the
 JAX package in ``sys.modules``; a static scan finds no import of any of
 them; and the merge's default device refuses to run silently on the CPU.
@@ -67,6 +68,33 @@ def test_the_model_slice_is_collected():
                 "repro_torch.models.xlstm", "repro_torch.models.transformer",
                 "repro_torch.models.interop"):
         assert mod in names, mod
+
+
+def test_the_serving_slice_is_collected():
+    names = _port_modules()
+    for mod in ("repro_torch.configs.shapes", "repro_torch.models.registry",
+                "repro_torch.dist.fanin", "repro_torch.launch.serve"):
+        assert mod in names, mod
+
+
+def test_the_serving_slice_imports_without_jax_triton_or_cuda():
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['triton'] = None\n"
+        "for name in ('repro_torch.configs.shapes', 'repro_torch.models."
+        "registry', 'repro_torch.dist.fanin', 'repro_torch.launch.serve'):\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
+        "             and m.split('.')[0] in ('jax', 'ml_dtypes', 'repro',\n"
+        "                                     'triton'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
 
 
 def test_the_training_slice_is_collected():

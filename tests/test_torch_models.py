@@ -219,8 +219,27 @@ def test_transformer_lm_xlstm_blocks_are_a_list():
 
 
 def test_other_modes_wait_for_serving():
+    """The serve modes now run (``tests/test_torch_serve_steps.py`` holds
+    them against the reference); what still waits is the int8
+    expert-parallel MoE decode, for the multi-GPU slice."""
     cfg = smoke_config("granite-3-8b")
     params = tf.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
+    logits, cache = tf.forward(
+        cfg, params, {"tokens": torch.zeros(1, 4, dtype=torch.int32)},
+        mode="prefill")
+    assert logits.shape == (1, cfg.vocab)
+    assert cache["k"].shape == (cfg.n_layers, 1, 4, cfg.n_kv_heads,
+                                cfg.head_dim)
+    with pytest.raises(ValueError, match="unknown mode"):
         tf.forward(cfg, params, {"tokens": torch.zeros(1, 4, dtype=torch.int32)},
-                   mode="prefill")
+                   mode="generate")
+    from repro_torch.dist import collectives
+    moe_cfg = smoke_config("qwen3-moe-30b-a3b")
+    moe_params = tf.init_params(moe_cfg, seed=0, device="cpu")
+    cache = tf.init_cache(moe_cfg, 1, 8, device="cpu")
+    batch = {"tokens": torch.zeros(1, 1, dtype=torch.int32),
+             "pos": torch.tensor(3, dtype=torch.int32)}
+    with collectives.act_transport_scope("int8"), \
+            pytest.raises(NotImplementedError, match="queue 1, item 3"):
+        tf.forward(moe_cfg, moe_params, batch, mode="decode", cache=cache,
+                   cache_len_total=8)
