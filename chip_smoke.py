@@ -111,7 +111,27 @@ Needs one CUDA card and ``nvcc``. Phases, each reported on its own lines:
     int8 and f8 first-step logits within the reference's bars of bf16,
     the cache sizes, each ragged row's prefill within ``ROW_REL_BAR`` of
     a solo prefill, evictions in the contended fan-in; then ``cast_f8``
-    over all 65,536 bf16 patterns, card against CPU, byte for byte.
+    over all 65,536 bf16 patterns, card against CPU, byte for byte;
+12. ``train/ranks``: training across 4 ranks, spawned once, over NCCL
+    when there is a card for each and otherwise over gloo with every rank
+    on cuda:0 (printed, with the functional collectives staged through
+    the host). (a) the two-stage int8 psum on paper-lm-100m's largest
+    gradient leaf, each rank bit for bit against the one-process
+    emulation; (b) the data-parallel step, paper-lm-100m at full width,
+    8 x 4096 (2 rows a rank), 5 steps a transport: per-rank step ms, wire
+    bytes by collective (int8_ef fewer than bf16), the loss against the
+    one-process step within phase 9's bf16 bar; (c) the SPMD step under
+    ``baseline`` on (data 2, model 2), Granite-3-8B at full width cut to 4
+    of 40 layers at 2 x 2048: local shard shapes against
+    ``resolve_spec``'s, step ms, the loss against one process; (d) the
+    launcher's wiring across the ranks, cut to 6 steps with a cycle every
+    3 and a checkpoint every 2: every merge against numpy,
+    ``compact_chunks``'s launches (``train@4``), the losses against one
+    process, the last checkpoint restored with ``shardings=`` bit for
+    bit, and steps 4-5 again from the step-4 checkpoint against the first
+    run; then one NCCL rank at world 1 on a (1, 1) ``DeviceMesh``: the
+    parameters laid out and gathered back, the data-parallel step under
+    ``int8_ef``.
 
 Times are CUDA events around each call, the host's work up to the launch
 included, as a user of the op pays it. Each kernel's entry also carries
@@ -121,7 +141,7 @@ spin kernel, so that the events time the device alone.
 The tuned-point cache lives in a fresh temporary directory for the run
 (``REPRO_TORCH_TUNED_DIR``), so no earlier sweep changes a default point.
 The kernels line's ``launches`` for the ``compact_pack`` kernels is the
-sum over phases 4 and 7 (and 10 for ``compact_chunks``),
+sum over phases 4 and 7 (and 10 and 12 for ``compact_chunks``),
 ``launches_by_path`` each; every kernel's ``launches_by_path["serve"]``
 is phase 11's count, 0. It exits non-zero when
 a phase fails, and prints as its last line
@@ -131,8 +151,11 @@ a phase fails, and prints as its last line
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import functools
 import importlib
+import io
 import json
 import math
 import os
@@ -144,6 +167,7 @@ import sys
 import tempfile
 import time
 import types
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -2657,6 +2681,514 @@ def phase_serve(args, dev, smi: str) -> None:
     assert not any(launches.values()), launches
 
 
+# ------------------------------------------------------------ train/ranks
+# Phase 12: training across W ranks, spawned once. With a card for each
+# rank they talk over NCCL; on one card the ranks share cuda:0 over gloo,
+# since NCCL refuses two ranks on one device. Its numbers are the card's:
+# 4 processes sharing one H100, not a multi-card figure.
+RANKS_W = 4
+RANKS_PLAN = {
+    # (a) the two-stage int8 psum at paper-lm-100m's largest gradient
+    # leaf, the tied embedding (vocab 32000 x d_model 768)
+    "psum_shape": (32000, 768),
+    # (b) the data-parallel step, paper-lm-100m at full width, all 12
+    # layers: global batch 8 x 4096 (2 rows a rank), 5 steps a transport
+    "dp_arch": MODEL_ARCH, "dp_batch": 8, "dp_seq": 4096, "dp_steps": 5,
+    # (c) the SPMD step under baseline on (data 2, model 2): Granite-3-8B
+    # at full width, depth cut to 4 of 40 layers, batch to 2 x 2048
+    "spmd_arch": "granite-3-8b", "spmd_layers": 4, "spmd_model": 2,
+    "spmd_batch": 2, "spmd_seq": 2048, "spmd_steps": 3,
+    # (d) the launcher's wiring at its defaults, cut to fit the phase (on
+    # an NVIDIA H100 80GB HBM3 at 700 W a step across 4 ranks sharing the
+    # card took 7.6 s, against 0.4 s in one process): 6 of its 60 steps,
+    # an AutoComp cycle every 3 steps instead of 25 and a checkpoint every
+    # 2 instead of 20; then steps 4-5 again from the step-4 checkpoint
+    # restored with shardings=
+    "launch_argv": ["--steps", "6", "--compact-every", "3"],
+    "launch_ckpt_every": 2, "launch_restore": 4,
+    "smoke": False, "device": "cuda",
+}
+RANKS_ADAMW = {"lr": 1e-3, "warmup_steps": 10, "total_steps": 60}
+# Each arm's step against one process on the same batches, beyond the
+# loss: every step's grad_norm (relative), which a step that skips the
+# reduction (about 1/W) or sums where it should average (W times)
+# misses by tens of percent; and the parameters after the last step,
+# |final - one process's final| / |one process's update| over every
+# parameter, which is 1 for a step that skips the update. The sound arms
+# read at most 1.8e-3 and 0.057 on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md, Findings): the reductions regroup bf16 sums, and
+# int8_ef is held against one process's bf16 step.
+RANKS_NORM_BAR, RANKS_GAP_BAR = 1e-2, 0.25
+
+
+def ranks_config(plan: dict, arch: str, n_layers: Optional[int] = None):
+    cfg = smoke_config(arch) if plan["smoke"] else get_config(arch)
+    return cfg if n_layers is None else \
+        dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def ranks_batches(vocab: int, steps: int, rows: int, seq: int, seed: int
+                  ) -> list:
+    """``steps`` global batches of ``rows`` x ``seq`` tokens from ``seed``
+    (numpy, the same in every process)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(steps):
+        tok = rng.integers(0, vocab, (rows, seq + 1), dtype=np.int32)
+        out.append({"tokens": torch.from_numpy(tok[:, :-1].copy()),
+                    "labels": torch.from_numpy(tok[:, 1:].copy())})
+    return out
+
+
+def timed_steps(step_fn, params, opt, batches, dev):
+    """``step_fn`` over ``batches``: the final parameters and state, and
+    the run: each step's loss, grad_norm, ms (synchronised) and wire
+    bytes by kind."""
+    run = {"losses": [], "norms": [], "ms": [], "wire": []}
+    for nb in batches:
+        nb = {k: v.to(dev) for k, v in nb.items()}
+        coll.reset_wire_bytes()
+        sync(dev)
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, nb)
+        run["losses"].append(float(m["loss"]))
+        run["norms"].append(float(m["grad_norm"]))
+        sync(dev)
+        run["ms"].append((time.perf_counter() - t0) * 1e3)
+        run["wire"].append(coll.wire_bytes())
+    return params, opt, run
+
+
+def one_process(cfg, batches, dev, seed: int, save_to: str) -> dict:
+    """The one-device step over the same global batches, from the same
+    weights (drawn on ``dev`` from ``seed``): its run, and its final
+    parameters saved to ``save_to`` for the ranks' :func:`param_gap`."""
+    params = model_tf.init_params(cfg, seed=seed, device=dev,
+                                  draw_on_device=True)
+    step_fn = step_lib.make_train_step(cfg, opt_lib.AdamWConfig(**RANKS_ADAMW))
+    params, _, run = timed_steps(step_fn, params,
+                                 opt_lib.init_state(params), batches, dev)
+    torch.save([p.cpu() for p in tree_leaves(params)], save_to)
+    return run
+
+
+def param_gap(final, init, ref_path: str, dev) -> float:
+    """``|final - ref| / |ref - init|`` over every parameter (f32 sums of
+    squares), ``ref`` the one-process final parameters at ``ref_path``:
+    0 for the same step, 1 for a step that skips the update. A DTensor
+    leaf is gathered whole, a collective that every rank joins."""
+    from repro_torch.dist import sharding as shd
+
+    def whole(t):
+        return (t.full_tensor() if shd.is_dtensor(t) else t).float()
+
+    gap = upd = 0.0
+    for f, i, w in zip(tree_leaves(final), tree_leaves(init),
+                       torch.load(ref_path, mmap=True)):
+        w = w.to(dev).float()
+        gap += float(((whole(f) - w) ** 2).sum())
+        upd += float(((w - whole(i)) ** 2).sum())
+    return math.sqrt(gap / upd)
+
+
+def ranks_psum(plan: dict, rank: int, world: int, mesh, dev,
+               seed: int) -> dict:
+    """(a) ``compressed_psum`` over the data axis on every rank against the
+    plain one-process emulation of the same exchange, bit for bit."""
+    shape = plan["psum_shape"]
+    carries = []
+    for r in range(world):
+        gen = torch.Generator(dev).manual_seed(seed * 1000 + r)
+        x = torch.randn(shape, generator=gen, device=dev) \
+            * torch.exp(torch.randn(shape, generator=gen, device=dev))
+        carries.append((x, torch.randn(shape, generator=gen, device=dev)
+                        * 1e-2))
+    x, err = carries[rank]
+    ms = []
+    for _ in range(3):
+        coll.reset_wire_bytes()
+        sync(dev)
+        t0 = time.perf_counter()
+        out, new_err = coll.compressed_psum(x, "data", err, mesh=mesh)
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    wire = coll.wire_bytes()
+    want, want_err = coll.two_stage_int8_psum_plain(torch.stack(
+        [(a + e).reshape(-1) for a, e in carries]))
+    same = same_bits(out.reshape(-1), want) and \
+        same_bits(new_err.reshape(-1), want_err[rank])
+    return {"same": same, "ms": ms, "wire": wire}
+
+
+def ranks_dp(plan: dict, mesh, dev, seed: int) -> dict:
+    """(b) the data-parallel step, both transports, on the same batches,
+    each arm's final parameters held against one process's."""
+    cfg = ranks_config(plan, plan["dp_arch"])
+    batches = ranks_batches(cfg.vocab, plan["dp_steps"], plan["dp_batch"],
+                            plan["dp_seq"], seed)
+    params = model_tf.init_params(cfg, seed=seed, device=dev,
+                                  draw_on_device=True)
+    adamw = opt_lib.AdamWConfig(**RANKS_ADAMW)
+    out = {}
+    for transport in step_lib.GRAD_TRANSPORTS:
+        step_fn = step_lib.make_train_step(cfg, adamw,
+                                           grad_transport=transport,
+                                           mesh=mesh)
+        opt = opt_lib.init_state(params,
+                                 error_feedback=transport == "int8_ef",
+                                 ef_devices=1)
+        final, opt, run = timed_steps(step_fn, params, opt, batches, dev)
+        run["wire"] = run["wire"][-1]
+        run["gap"] = param_gap(final, params, plan["dp_ref"], dev)
+        out[transport] = run
+        if transport == "int8_ef":
+            run["ef_nonzero"] = all(
+                bool((e != 0).any()) for e in tree_leaves(opt["ef"]))
+        del opt, final
+    return out
+
+
+def _walk(tree, prefix=()):
+    """``(path, leaf)`` pairs in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk(tree[k], prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            yield from _walk(t, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def ranks_spmd(plan: dict, dev, seed: int) -> dict:
+    """(c) the SPMD step under baseline on (data 2, model 2): each leaf's
+    local shard shape against ``resolve_spec``'s, the run, and the final
+    parameters held against one process's."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import mesh as mesh_lib
+
+    cfg = ranks_config(plan, plan["spmd_arch"], plan["spmd_layers"])
+    mesh = mesh_lib.make_local_mesh(plan["spmd_model"], device=dev)
+    rules = shd.PRESETS["baseline"]
+    axes = model_tf.param_axes(cfg)
+    params = shd.distribute_tree(
+        model_tf.init_params(cfg, seed=seed, device=dev, draw_on_device=True),
+        axes, mesh, rules)
+    shapes = {}
+    for (path, leaf), ax in zip(_walk(params),
+                                tree_leaves(axes, model_tf.is_axes)):
+        spec = shd.resolve_spec(leaf.shape, ax, mesh, rules)
+        shapes["/".join(map(str, path))] = (
+            tuple(leaf.to_local().shape),
+            shd.local_shape(leaf.shape, spec, mesh), spec)
+    with shd.axis_rules(mesh, rules):
+        step_fn = step_lib.make_train_step(
+            cfg, opt_lib.AdamWConfig(**RANKS_ADAMW))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    final, opt, run = timed_steps(
+        step_fn, params, opt_lib.init_state(params),
+        ranks_batches(cfg.vocab, plan["spmd_steps"], plan["spmd_batch"],
+                      plan["spmd_seq"], seed), dev)
+    run["peak_gib"] = torch.cuda.max_memory_allocated(dev) / (1 << 30) \
+        if dev.type == "cuda" else None
+    del opt
+    run["gap"] = param_gap(final, params, plan["spmd_ref"], dev)
+    run["shapes"] = shapes
+    return run
+
+
+def skip_batches(factory, n: int):
+    """``factory``'s batches after its first ``n``: the stream a run
+    restored at step ``n`` would have gone on reading."""
+    def gen():
+        it = factory()
+        for _ in range(n):
+            next(it)
+        yield from it
+    return gen
+
+
+def run_launcher(plan: dict) -> tuple:
+    """``launch.train.build`` at ``plan``'s arguments, run as ``main`` runs
+    it, with the plan's checkpoint interval: the wiring and the
+    history."""
+    run = launch_train.build(launch_train.parse_args(plan["launch_argv"]))
+    run.trainer.cfg.ckpt_every = plan["launch_ckpt_every"]
+    return run, run.trainer.run_with_recovery()["history"]
+
+
+def ranks_launch(plan: dict, rank: int, dev) -> dict:
+    """(d) the launcher across the ranks: run 1, an elastic restore of the
+    last checkpoint with ``shardings=`` held against the live state, then
+    the steps after an earlier checkpoint again from it, restored with
+    ``shardings=``, on the batches run 1 read there."""
+    from repro_torch.dist import sharding as shd
+
+    check = MergeCheck(packing.merge_shards_fn)
+    launch_train.merge_shards_fn = check
+    kern.reset_launches()
+    text = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(text):
+            run, hist = run_launcher(plan)
+        sync(dev)
+    finally:
+        launch_train.merge_shards_fn = packing.merge_shards_fn
+    chunks = kern.LAUNCHES["compact_chunks"]
+    merged = check.verify(drop_rows=None) if rank == 0 else None
+    tr = run.trainer
+    rules = shd.PRESETS["baseline"]
+    axes = model_tf.param_axes(run.cfg)
+    shardings = (shd.tree_shardings(tr.params, axes, run.mesh, rules),
+                 shd.tree_shardings(tr.opt_state, opt_lib.state_axes(axes),
+                                    run.mesh, rules),
+                 None)
+    like = (tr.params, tr.opt_state, 0)
+    (p_last, o_last, _), last = tr.ckpt.restore(like, shardings=shardings)
+    live = tree_leaves((tr.params, tr.opt_state["mu"], tr.opt_state["nu"]))
+    got = tree_leaves((p_last, o_last["mu"], o_last["nu"]))
+    same_last = all(same_bits(a.full_tensor(), b.full_tensor())
+                    for a, b in zip(got, live))
+    placed = all(tuple(a.placements) == tuple(b.placements)
+                 for a, b in zip(got, live))
+    (p_at, o_at, s_at), restored = tr.ckpt.restore(
+        like, step=plan["launch_restore"], shardings=shardings)
+    del run, tr, like, live, got, p_last, o_last
+    run2 = launch_train.build(launch_train.parse_args(plan["launch_argv"]))
+    tr2 = run2.trainer
+    tr2.params, tr2.opt_state, tr2.step, tr2.ckpt = p_at, o_at, int(s_at), \
+        None
+    tr2.batches = skip_batches(tr2.batches, int(s_at))
+    after = tr2.run()["history"]
+    return {"text": text.getvalue(), "losses": [h["loss"] for h in hist],
+            "ms": [h["time_s"] * 1e3 for h in hist], "chunks": chunks,
+            "merged": merged, "last": last, "same_last": same_last,
+            "placed": placed, "restored": restored,
+            "after": [(h["step"], h["loss"]) for h in after]}
+
+
+def ranks_rank(rank: int, world: int, init: str, backend: str, plan: dict,
+               seed: int) -> dict:
+    """One rank of phase 12: (a)-(d) in order, on this rank's device."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    dev = mesh_lib.init_ranks(backend, rank=rank, world_size=world,
+                              init_method=init, device=plan["device"])
+    staged = list(coll.GLOO_HOST_STAGED) if coll._staging else []
+    mesh = mesh_lib.make_local_mesh(device=dev)
+    out = {"device": str(dev), "staged": staged, "walls": {}}
+    parts = (("psum", lambda: ranks_psum(plan, rank, world, mesh, dev, seed)),
+             ("dp", lambda: ranks_dp(plan, mesh, dev, seed)),
+             ("spmd", lambda: ranks_spmd(plan, dev, seed)),
+             ("launch", lambda: ranks_launch(plan, rank, dev)))
+    for part, fn in parts:
+        t0 = time.perf_counter()
+        out[part] = fn()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["walls"][part] = time.perf_counter() - t0
+        if rank == 0:
+            print(f"train/ranks rank 0: {part} done in "
+                  f"{out['walls'][part]} s", flush=True)
+    return out
+
+
+def nccl_rank(rank: int, world: int, init: str, plan: dict,
+              seed: int) -> dict:
+    """One NCCL rank at world 1 on cuda:0: the (1, 1) DeviceMesh, the
+    parameters laid out on it and gathered back, the data-parallel step
+    under ``int8_ef`` (the two-stage exchange over NCCL) on the
+    data-parallel arm's global batches."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import mesh as mesh_lib
+
+    dev = mesh_lib.init_ranks("nccl", rank=rank, world_size=world,
+                              init_method=init)
+    mesh = mesh_lib.make_local_mesh(device=dev)
+    cfg = ranks_config(plan, plan["dp_arch"])
+    params = model_tf.init_params(cfg, seed=seed, device=dev,
+                                  draw_on_device=True)
+    placed = shd.distribute_tree(params, model_tf.param_axes(cfg), mesh,
+                                 shd.PRESETS["baseline"])
+    round_trip = all(same_bits(a.full_tensor(), b) for a, b in
+                     zip(tree_leaves(placed), tree_leaves(params)))
+    del placed
+    step_fn = step_lib.make_train_step(
+        cfg, opt_lib.AdamWConfig(**RANKS_ADAMW), grad_transport="int8_ef",
+        mesh=mesh)
+    _, _, run = timed_steps(
+        step_fn, params, opt_lib.init_state(params, error_feedback=True,
+                                            ef_devices=1),
+        ranks_batches(cfg.vocab, 2, plan["dp_batch"], plan["dp_seq"], seed),
+        dev)
+    return {**run, "mesh": str(mesh), "round_trip": round_trip,
+            "wire": run["wire"][-1]}
+
+
+def worst_rel(got, want) -> float:
+    return max(abs(g - w) / abs(w) for g, w in zip(got, want))
+
+
+def phase_ranks(args, dev, smi: str, plan: Optional[dict] = None) -> int:
+    """Phase 12: training across ranks. Returns ``compact_chunks``'s
+    launches on the launcher's run across the ranks (the ``train@4``
+    path)."""
+    from repro_torch.dist.spawn import run_ranks
+    from repro_torch.launch.mesh import pick_backend
+
+    plan = RANKS_PLAN if plan is None else plan
+    t_phase = time.perf_counter()
+    bar = ROW_REL_BAR[torch.bfloat16]
+    backend = pick_backend(plan["device"], RANKS_W)
+    where = "a card each" if backend == "nccl" else \
+        f"sharing {dev} ({torch.cuda.device_count()} card(s))"
+    print(f"train/ranks ({smi}): {RANKS_W} ranks over {backend}, {where}; "
+          f"the backend chosen by the card count, before any collective")
+    print(f"train/ranks reduced: " + json.dumps({
+        "spmd depth (granite-3-8b: 40)": plan["spmd_layers"],
+        "spmd batch": f"{plan['spmd_batch']} x {plan['spmd_seq']}",
+        "launcher (its defaults: 60 steps, a cycle every 25, a checkpoint "
+        "every 20)": [plan["launch_argv"],
+                      f"ckpt every {plan['launch_ckpt_every']}"]}))
+    # the one-process references, before the ranks take the card; their
+    # final parameters go to files the ranks read
+    refs = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        plan = dict(plan, dp_ref=os.path.join(refs, "dp.pt"),
+                    spmd_ref=os.path.join(refs, "spmd.pt"))
+        cfg = ranks_config(plan, plan["dp_arch"])
+        dp_one = one_process(cfg, ranks_batches(
+            cfg.vocab, plan["dp_steps"], plan["dp_batch"], plan["dp_seq"],
+            args.seed), dev, args.seed, plan["dp_ref"])
+        scfg = ranks_config(plan, plan["spmd_arch"], plan["spmd_layers"])
+        spmd_one = one_process(scfg, ranks_batches(
+            scfg.vocab, plan["spmd_steps"], plan["spmd_batch"],
+            plan["spmd_seq"], args.seed), dev, args.seed, plan["spmd_ref"])
+        with contextlib.redirect_stdout(io.StringIO()):
+            ref_hist = run_launcher(plan)[1]
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = run_ranks(ranks_rank, RANKS_W, backend, plan, args.seed,
+                        timeout=600)
+    finally:
+        shutil.rmtree(refs, ignore_errors=True)
+    dp_ref, spmd_ref = dp_one["losses"], spmd_one["losses"]
+    print(f"train/ranks group: {time.perf_counter() - t0} s for {RANKS_W} "
+          f"spawned ranks on {[r['device'] for r in res]}; collectives "
+          f"staged through pinned host buffers: {res[0]['staged'] or 'none'}"
+          f"; per-rank part walls (s) {[r['walls'] for r in res]}")
+    # (a)
+    ps = [r["psum"] for r in res]
+    print(f"train/ranks psum {plan['psum_shape']} f32 over data={RANKS_W}: "
+          f"outputs and residuals bit-equal to the one-process emulation "
+          f"{[p['same'] for p in ps]}; ms per rank (3 calls) "
+          f"{[p['ms'] for p in ps]}; wire bytes per rank {ps[0]['wire']}")
+    assert all(p["same"] for p in ps)
+    # (b)
+    wire = {}
+    for transport in step_lib.GRAD_TRANSPORTS:
+        arm = [r["dp"][transport] for r in res]
+        wire[transport] = sum(arm[0]["wire"].values())
+        rel = worst_rel(arm[0]["losses"], dp_ref)
+        norm_rel = worst_rel(arm[0]["norms"], dp_one["norms"])
+        print(f"train/ranks dp {cfg.name} bf16 {plan['dp_batch']} x "
+              f"{plan['dp_seq']} ({plan['dp_batch'] // RANKS_W} rows a "
+              f"rank), {transport}: step ms per rank (median of steps 2-"
+              f"{plan['dp_steps']}) "
+              f"{[statistics.median(a['ms'][1:]) for a in arm]}, all "
+              f"{[a['ms'] for a in arm]}; wire bytes per step per rank "
+              f"{arm[0]['wire']} (total {wire[transport]}); loss "
+              f"{arm[0]['losses']} against one process {dp_ref} (its step "
+              f"ms {dp_one['ms']}), worst rel {rel} (bar {bar}); grad_norm "
+              f"{arm[0]['norms']} against {dp_one['norms']}, worst rel "
+              f"{norm_rel} (bar {RANKS_NORM_BAR}); parameter gap "
+              f"per rank {[a['gap'] for a in arm]} (bar "
+              f"{RANKS_GAP_BAR})")
+        assert all(a["losses"] == arm[0]["losses"] for a in arm)
+        assert rel <= bar, rel
+        assert norm_rel <= RANKS_NORM_BAR, norm_rel
+        assert all(a["gap"] <= RANKS_GAP_BAR for a in arm)
+    assert all(r["dp"]["int8_ef"]["ef_nonzero"] for r in res)
+    print(f"train/ranks dp wire: int8_ef {wire['int8_ef']} bytes a step "
+          f"against bf16 {wire['bf16']} ({wire['bf16'] / wire['int8_ef']}x)")
+    assert wire["int8_ef"] < wire["bf16"], wire
+    # (c)
+    sp = [r["spmd"] for r in res]
+    bad = [(k, v) for s in sp for k, v in s["shapes"].items()
+           if v[0] != v[1]]
+    rel = worst_rel(sp[0]["losses"], spmd_ref)
+    norm_rel = worst_rel(sp[0]["norms"], spmd_one["norms"])
+    print(f"train/ranks spmd {scfg.name} bf16 at full width, depth "
+          f"{scfg.n_layers}, {plan['spmd_batch']} x {plan['spmd_seq']} "
+          f"under baseline on (data, model) ({RANKS_W // plan['spmd_model']}"
+          f", {plan['spmd_model']}): local shard shapes equal to "
+          f"resolve_spec's {not bad} (rank 0: embed {sp[0]['shapes']['embed']}"
+          f", wq {sp[0]['shapes']['layers/attn/wq']}); step ms per rank "
+          f"{[s['ms'] for s in sp]}; peak GiB per rank "
+          f"{[s['peak_gib'] for s in sp]}; loss {sp[0]['losses']} against "
+          f"one process {spmd_ref} (its step ms {spmd_one['ms']}), worst rel "
+          f"{rel} (bar {bar}); grad_norm {sp[0]['norms']} against "
+          f"{spmd_one['norms']}, worst rel {norm_rel} (bar "
+          f"{RANKS_NORM_BAR}); parameter gap per rank "
+          f"{[s['gap'] for s in sp]} (bar {RANKS_GAP_BAR})")
+    assert not bad, bad[:4]
+    assert all(s["losses"] == sp[0]["losses"] for s in sp)
+    assert rel <= bar, rel
+    assert norm_rel <= RANKS_NORM_BAR, norm_rel
+    assert all(s["gap"] <= RANKS_GAP_BAR for s in sp)
+    # (d)
+    ln = [r["launch"] for r in res]
+    runs = dict(ln[0]["after"])
+    mean1 = statistics.fmean(ln[0]["losses"][s] for s in runs)
+    mean_rel = abs(statistics.fmean(runs.values()) - mean1) / mean1
+    step_rel = worst_rel(list(runs.values()),
+                         [ln[0]["losses"][s] for s in runs])
+    n_cycles = ln[0]["text"].count("[autocomp] cycle")
+    print(f"train/ranks launch: build({plan['launch_argv']}), a checkpoint "
+          f"every {plan['launch_ckpt_every']} steps, across {RANKS_W} ranks"
+          f", rank 0 printed:\n{ln[0]['text'].rstrip()}")
+    print(f"train/ranks launch: step ms per rank (median of steps 2-) "
+          f"{[statistics.median(l['ms'][1:]) for l in ln]}; loss "
+          f"{ln[0]['losses'][0]} -> {ln[0]['losses'][-1]} against one "
+          f"process {ref_hist[0]['loss']} -> {ref_hist[-1]['loss']} (worst "
+          f"rel {worst_rel(ln[0]['losses'], [h['loss'] for h in ref_hist])}"
+          f"); compact_chunks launches per rank {[l['chunks'] for l in ln]}"
+          f"; merges checked {ln[0]['merged']}; [autocomp] lines "
+          f"{n_cycles}; restore of step {ln[0]['last']} with shardings= "
+          f"bit-equal {[l['same_last'] for l in ln]}, placements kept "
+          f"{[l['placed'] for l in ln]}; steps {min(runs)}-{max(runs)} "
+          f"again from step {ln[0]['restored']} on run 1's batches: mean "
+          f"loss rel diff {mean_rel}, worst step {step_rel} (bar {bar})")
+    assert n_cycles == 1 and not any(l["text"] for l in ln[1:])
+    assert not any(l["chunks"] for l in ln[1:])
+    assert ln[0]["chunks"] >= 1 or plan["device"] == "cpu"
+    assert ln[0]["merged"]["compactions"] >= 1
+    assert all(l["same_last"] and l["placed"] for l in ln)
+    assert ln[0]["restored"] == plan["launch_restore"]
+    assert mean_rel <= bar, mean_rel
+    assert worst_rel(ln[0]["losses"], [h["loss"] for h in ref_hist]) <= bar
+    assert ln[0]["losses"][-1] < ln[0]["losses"][0]
+    # one NCCL rank at world 1, on the card only
+    if plan["device"] == "cuda":
+        t0 = time.perf_counter()
+        nc = run_ranks(nccl_rank, 1, plan, args.seed, timeout=300)[0]
+        rel = worst_rel(nc["losses"], dp_ref[:2])
+        norm_rel = worst_rel(nc["norms"], dp_one["norms"][:2])
+        print(f"train/ranks nccl world 1: {nc['mesh']}; parameters laid out "
+              f"and gathered back bit-equal {nc['round_trip']}; dp "
+              f"{cfg.name} int8_ef {plan['dp_batch']} x {plan['dp_seq']} "
+              f"step ms {nc['ms']}, wire bytes {nc['wire']}, loss "
+              f"{nc['losses']} against one process {dp_ref[:2]}, worst rel "
+              f"{rel} (bar {bar}); grad_norm worst rel {norm_rel} (bar "
+              f"{RANKS_NORM_BAR}); {time.perf_counter() - t0} s")
+        assert nc["round_trip"] and rel <= bar, rel
+        assert norm_rel <= RANKS_NORM_BAR, norm_rel
+    print(f"train/ranks: phase wall {time.perf_counter() - t_phase} s")
+    return ln[0]["chunks"]
+
+
 def main() -> int:
     args = parse_args()
     if not torch.cuda.is_available():
@@ -2671,6 +3203,11 @@ def main() -> int:
     reduced["serve/granite-3-8b batch (decode_32k: 128)"] = SERVE_BATCH
     reduced["serve/granite-3-8b horizon (decode_32k: 32768)"] = \
         f"<= {SERVE_BUFFER + SERVE_NEW}"
+    reduced["train/ranks granite-3-8b depth (40)"] = \
+        RANKS_PLAN["spmd_layers"]
+    reduced["train/ranks launcher (60 steps, cycle/25, ckpt/20)"] = \
+        RANKS_PLAN["launch_argv"] + [
+            f"ckpt every {RANKS_PLAN['launch_ckpt_every']}"]
     print(f"reduced: {json.dumps(reduced)}")
     tuned_dir = tempfile.mkdtemp(prefix="chip_smoke_tuned_")
     os.environ["REPRO_TORCH_TUNED_DIR"] = tuned_dir
@@ -2712,6 +3249,11 @@ def main() -> int:
         phase_serve(args, dev, smi)
         for k in kernels:
             k.setdefault("launches_by_path", {})["serve"] = 0
+        ranks_chunks = phase_ranks(args, dev, smi)
+        for k in kernels:
+            if k["name"] == "compact_chunks":
+                k["launches_by_path"]["train@4"] = ranks_chunks
+                k["launches"] += ranks_chunks
     finally:
         shutil.rmtree(tuned_dir, ignore_errors=True)
     print(json.dumps({"kernels": kernels}))

@@ -9,15 +9,17 @@ none of it. Ported layers:
                           each with a plain PyTorch version
   repro_torch.configs  -- the architecture configs (copies of the reference's)
                           and the assigned input shapes
-  repro_torch.dist     -- sharding, the int8 gradient and serve quantizers,
-                          the f8 cast and the fan-in arbiter, single device
-                          for now
+  repro_torch.dist     -- sharding rules on a DeviceMesh, the two-stage int8
+                          gradient exchange across ranks, the serve
+                          quantizers, the f8 cast and the fan-in arbiter
   repro_torch.models   -- all seven families, training and serving, the
                           decode-state stores, and the weights' and caches'
                           carry-over
   repro_torch.train    -- AdamW, the train and serve steps, checkpoints, the
                           Trainer
-  repro_torch.launch   -- the training and serving launchers on one device
+  repro_torch.launch   -- meshes, the training launcher (one process or
+                          several ranks) and the serving launcher (one
+                          device)
 """
 
 __version__ = "0.1.0"

@@ -1,20 +1,30 @@
-"""Blockwise-int8 gradient compression with error feedback, and the
-serve-time collectives, on one device.
+"""Blockwise-int8 gradient compression with error feedback, the
+two-stage int8 all-reduce across ranks, and the serve-time collectives.
 
 The port of ``src/repro/dist/collectives.py``. The train step's
 ``grad_transport="int8_ef"`` quantizes each gradient leaf to symmetric
 int8 per ``block`` elements and carries the quantization residual into the
-next step (:func:`compressed_psum`). On one device there is no reduction:
-the quantization error and the residual carry are real, only the wire is
-not, as in the reference's ``axis_name=None`` form. The two-stage int8
-exchange across devices (``_two_stage_int8_psum``) waits for the
-multi-GPU slice (ROADMAP queue 1, item 3), and so does any ``axis_name``.
+next step (:func:`compressed_psum`). With ``axis_name=None`` there is no
+reduction: the quantization error and the residual carry are real, only
+the wire is not. With an axis, the reduction is the reference's two-stage
+exchange (:func:`_two_stage_int8_psum`) over that mesh dim's process
+group: int8 chunks and f32 scales through ``all_to_all_single``, a local
+sum, then the requantized owned chunk through ``all_gather_into_tensor``.
 
-The reference always runs jitted, and XLA on the CPU rounds two steps
+The reference always runs jitted, and XLA on the CPU rounds some steps
 differently from eager torch: it turns ``amax / 127.0`` into a product
-with the f32 reciprocal, and it fuses the residual ``carry - q * s`` into
-one rounding. The port takes both, so its outputs and residuals equal the
-jitted reference's bit for bit.
+with the f32 reciprocal, it fuses each residual ``carry - q * s`` into
+one rounding, and it fuses the peers' dequantize-and-sum into one
+rounding per added term. The port takes all three, so its outputs and
+residuals equal the jitted reference's bit for bit.
+
+Every collective this module calls goes through :func:`_collective`,
+which counts the bytes handed to it by kind (:func:`wire_bytes`): the
+port's counterpart of the reference's HLO collective byte count. Over
+gloo on the card, the functional all-gather that DTensor calls, which
+segfaults there, is staged through pinned host buffers
+(:func:`stage_gloo_functional`), decided by the backend before any
+collective runs.
 
 The serve half (``collectives.py:145-417`` of the reference) carries the
 activation transport and the KV storage scopes, the lastdim and seq-axis
@@ -27,24 +37,142 @@ outside every serve scope, where ``act_gather`` is the identity.
 
 from __future__ import annotations
 
+import collections
 import threading
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.dist import sharding
 from repro_torch.dist.sharding import constrain
 
 # XLA's rewrite of ``/ 127.0``: a product with the reciprocal in f32
 _INV_127 = float(np.float32(1.0 / 127.0))
 
 
-def _require_one_device(axis_name: Optional[str]) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"compressed_psum over axis {axis_name!r}: the two-stage int8 "
-            "exchange across devices comes with the multi-GPU slice "
-            "(ROADMAP queue 1, item 3); on one device pass axis_name=None")
+# ---------------------------------------------------------------------------
+# the wire: every collective of this module, counted by kind
+# ---------------------------------------------------------------------------
+
+# bytes this process handed to each kind of collective since the last reset
+_WIRE: Dict[str, int] = collections.Counter()
+
+# The functional collectives (the ops DTensor calls) that crash over gloo
+# on CUDA tensors: on the card's torch 2.11 ``funcol.all_gather_tensor``
+# segfaults in its wait, while the functional all-reduce, reduce-scatter
+# and all-to-all and every plain c10d collective run (PERF.md). Under gloo
+# on the card these go through pinned host buffers instead
+# (:func:`stage_gloo_functional`).
+GLOO_HOST_STAGED = ("all_gather_into_tensor",)
+
+# the op library holding the staged kernels, kept for the process's life
+_staging: list = []
+
+
+def reset_wire_bytes() -> None:
+    _WIRE.clear()
+
+
+def wire_bytes() -> Dict[str, int]:
+    """Bytes handed to each kind of collective since the last reset."""
+    return dict(_WIRE)
+
+
+def _call(kind: str, out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    if kind == "all_reduce":
+        dist.all_reduce(out, group=group)
+    elif kind == "broadcast":                   # from the group's rank 0
+        src = 0 if group is None else dist.get_global_rank(group, 0)
+        dist.broadcast(out, src, group=group)
+    elif kind == "all_to_all_single":
+        dist.all_to_all_single(out, inp, group=group)
+    elif kind == "all_gather_into_tensor":
+        dist.all_gather_into_tensor(out, inp, group=group)
+    else:
+        raise ValueError(f"unknown collective {kind!r}")
+
+
+def _collective(kind: str, out: torch.Tensor, inp: torch.Tensor,
+                group) -> None:
+    """One collective, its input's bytes counted under ``kind``. For
+    ``all_reduce`` and ``broadcast`` ``out`` is ``inp``, in place."""
+    _WIRE[kind] += inp.numel() * inp.element_size()
+    _call(kind, out, inp, group)
+
+
+def _gloo_host_staged(kind: str, out: torch.Tensor, inp: torch.Tensor,
+                      group) -> None:
+    """``kind`` on CUDA tensors over gloo, through pinned host copies:
+    the input copied down, the collective run on the host, the result
+    copied back into ``out``."""
+    h_in = torch.empty(inp.shape, dtype=inp.dtype, pin_memory=True)
+    h_in.copy_(inp)
+    h_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    _call(kind, h_out, h_in, group)
+    out.copy_(h_out)
+
+
+def stage_gloo_functional() -> Tuple[str, ...]:
+    """Route the functional collectives of :data:`GLOO_HOST_STAGED` on
+    CUDA tensors through :func:`_gloo_host_staged`, for this process;
+    returns their names. ``launch.mesh.init_ranks`` calls it when it joins
+    a gloo group on the card, before any collective."""
+    if _staging:
+        return GLOO_HOST_STAGED
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def all_gather_into_tensor(inp, group_size, group_name):
+        out = inp.new_empty((inp.shape[0] * group_size,)
+                            + tuple(inp.shape[1:]))
+        _gloo_host_staged("all_gather_into_tensor", out, inp.contiguous(),
+                          _resolve_process_group(group_name))
+        return out
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", all_gather_into_tensor, "CUDA")
+    _staging.append(lib)
+    return GLOO_HOST_STAGED
+
+
+def ranked() -> bool:
+    """Whether this process is one rank of several."""
+    return dist.is_initialized() and dist.get_world_size() > 1
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, in place (counted)."""
+    _collective("all_reduce", x, x, group)
+    return x
+
+
+def broadcast(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` from the group's rank 0 to every rank, in place (counted). A
+    host tensor crosses an NCCL group through the card."""
+    if x.device.type == "cpu" and dist.get_backend(group) == "nccl":
+        on_card = x.to(torch.device("cuda", torch.cuda.current_device()))
+        _collective("broadcast", on_card, on_card, group)
+        x.copy_(on_card)
+    else:
+        _collective("broadcast", x, x, group)
+    return x
+
+
+def axis_group(axis_name: str, mesh=None):
+    """The process group of mesh dim ``axis_name`` of ``mesh``, or of the
+    active :func:`sharding.axis_rules` mesh; ``None`` on the one-process
+    ``LocalMesh`` (a world of one)."""
+    mesh = sharding.current_mesh() if mesh is None else mesh
+    if mesh is None:
+        raise ValueError(f"axis {axis_name!r} names no mesh: pass mesh= or "
+                         "run inside sharding.axis_rules(mesh)")
+    if not sharding.is_device_mesh(mesh):        # LocalMesh: one process
+        if mesh.shape.get(axis_name, 1) != 1:
+            raise ValueError(f"a one-process mesh has no axis "
+                             f"{axis_name!r} of size > 1")
+        return None
+    return mesh.get_group(axis_name)
 
 
 def quantize_int8(x: torch.Tensor, block: int = 256
@@ -83,20 +211,130 @@ def _dequantize_blocks(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return q.float() * scales[..., None]
 
 
+def _dequant_sum(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """``sum_j q[j] * scales[j]`` over the leading axis of ``(w, nb,
+    block)``, each product added to the running f32 sum with one rounding,
+    as XLA's fused dequantize-and-reduce does: the product is exact in
+    f64 (8 by 24 bits), the sum rounds once to f32."""
+    acc = torch.zeros(q.shape[1:], dtype=torch.float32, device=q.device)
+    for j in range(q.shape[0]):
+        acc = (acc.double() + q[j].double()
+               * scales[j].double()[..., None]).float()
+    return acc
+
+
+def _residual(carry: torch.Tensor, q: torch.Tensor, scales: torch.Tensor
+              ) -> torch.Tensor:
+    """``carry - q * scales`` blockwise with one rounding, as XLA's fused
+    multiply-subtract: ``q * s`` is exact in f64 and so is the
+    difference, which then rounds once. ``carry`` is ``(..., block)``."""
+    exact = q.double() * scales.double()[..., None]
+    return (carry.double() - exact).float()
+
+
+def _two_stage_int8_psum(flat: torch.Tensor, group, block: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All-reduce the f32 vector ``flat`` across ``group`` moving int8.
+
+    The reference's two-stage exchange: the payload padded to a multiple
+    of ``w * block`` and split into one chunk per peer, each chunk
+    quantized blockwise; the int8 chunks and f32 scales through
+    ``all_to_all_single``, so each rank receives every peer's
+    contribution to its own chunk; dequantize and sum in peer order;
+    requantize the owned chunk and ``all_gather_into_tensor`` the int8
+    chunks and scales. Stage 1's error covers the whole local payload,
+    stage 2's only the owned chunk. ``group=None`` is a world of one.
+
+    Returns ``(summed_flat, residual_flat)`` of ``flat``'s length.
+    """
+    w = 1 if group is None else dist.get_world_size(group)
+    r = 0 if group is None else dist.get_rank(group)
+    n = flat.shape[0]
+    pad = (-n) % (w * block)
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    npad = flat.shape[0]
+    chunk = npad // w
+    blocks = flat.reshape(w, chunk // block, block)
+    # stage 1: my contribution to every peer's chunk, int8 on the wire
+    q1, s1 = _quantize_blocks(blocks)
+    err1 = _residual(blocks, q1, s1).reshape(npad)
+    q1x, s1x = torch.empty_like(q1), torch.empty_like(s1)
+    if group is None:
+        q1x.copy_(q1)
+        s1x.copy_(s1)
+    else:
+        _collective("all_to_all_single", q1x, q1, group)
+        _collective("all_to_all_single", s1x, s1, group)
+    mine = _dequant_sum(q1x, s1x)                # (chunk // block, block)
+    # stage 2: broadcast the reduced chunk, int8 on the wire again
+    q2, s2 = _quantize_blocks(mine)
+    err2 = _residual(mine, q2, s2).reshape(chunk)
+    # gathered along the leading axis: rank j's chunk at rows j * nb...
+    q2g = q2.new_empty((w * q2.shape[0], block))
+    s2g = s2.new_empty((w * s2.shape[0],))
+    if group is None:
+        q2g.copy_(q2)
+        s2g.copy_(s2)
+    else:
+        _collective("all_gather_into_tensor", q2g, q2, group)
+        _collective("all_gather_into_tensor", s2g, s2, group)
+    out = _dequantize_blocks(q2g, s2g).reshape(npad)
+    new_err = err1.clone()
+    new_err[r * chunk:(r + 1) * chunk] += err2
+    return out[:n], new_err[:n]
+
+
+def two_stage_int8_psum_plain(stack: torch.Tensor, block: int = 256
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two-stage exchange of ``stack`` (``(w, n)`` f32, row ``r`` rank
+    ``r``'s payload) in one process, no wire: every rank's stage 1, the
+    all-to-all as a transpose, every rank's stage 2. Returns ``(out,
+    residuals)``: the summed ``(n,)`` vector every rank holds, and
+    ``(w, n)`` per-rank residuals. The plain version the ranks' exchange
+    is held against."""
+    w, n = stack.shape
+    pad = (-n) % (w * block)
+    flat = torch.nn.functional.pad(stack.float(), (0, pad))
+    npad = flat.shape[1]
+    chunk = npad // w
+    blocks = flat.reshape(w, w, chunk // block, block)   # [src, dst, ...]
+    q1, s1 = _quantize_blocks(blocks)
+    err1 = _residual(blocks, q1, s1).reshape(w, npad)
+    outs, errs = [], []
+    for d in range(w):
+        mine = _dequant_sum(q1[:, d], s1[:, d])
+        q2, s2 = _quantize_blocks(mine)
+        outs.append(_dequantize_blocks(q2, s2).reshape(chunk))
+        e = err1[d].clone()
+        e[d * chunk:(d + 1) * chunk] += _residual(mine, q2, s2).reshape(chunk)
+        errs.append(e[:n])
+    return torch.cat(outs)[:n], torch.stack(errs)
+
+
 def compressed_psum(x: torch.Tensor, axis_name: Optional[str] = None,
-                    err: Optional[torch.Tensor] = None, *, block: int = 256
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The int8-compressed payload with error-feedback accumulation.
+                    err: Optional[torch.Tensor] = None, *, block: int = 256,
+                    mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """psum of an int8-compressed payload with error-feedback accumulation.
 
     The carried residual ``err`` (same shape as ``x``, float32; zeros or
     ``None`` on the first step) is added before quantization, and the new
     residual ``(x + err) - dequantized`` is returned for the next step.
+    ``axis_name=None`` is the single-device form: the quantization error
+    and the residual carry are real, only the wire is not. With an
+    ``axis_name`` the reduction is the two-stage int8 exchange over that
+    dim of ``mesh``, or of the active ``axis_rules`` mesh.
+
     Returns ``(summed, new_err)``: ``summed`` in ``x``'s dtype, ``new_err``
-    in float32. Only ``axis_name=None``, the single-device form.
+    in float32.
     """
-    _require_one_device(axis_name)
     xf = x.float()
     carry = xf if err is None else xf + err.float()
+    if axis_name is not None:
+        out, new_err = _two_stage_int8_psum(
+            carry.reshape(-1), axis_group(axis_name, mesh), block)
+        return (out.reshape(carry.shape).to(x.dtype),
+                new_err.reshape(carry.shape))
     q, scales = quantize_int8(carry, block)
     n = carry.numel()
     deq = dequantize_int8(q, scales, n).reshape(carry.shape)
@@ -105,8 +343,6 @@ def compressed_psum(x: torch.Tensor, axis_name: Optional[str] = None,
     exact = q.double() * scales.double()[:, None]
     new_err = (carry.double() - exact.reshape(-1)[:n].reshape(carry.shape))
     return deq.to(x.dtype), new_err.float()
-
-
 
 
 # ---------------------------------------------------------------------------

@@ -38,7 +38,8 @@ Sampling (``temperature > 0``) draws from a ``torch.Generator`` seeded by
 ``seed``: the same seed gives the same tokens, but not
 ``jax.random.categorical``'s. Greedy decoding gives the reference's tokens.
 
-Waiting for the multi-GPU slice (ROADMAP queue 1, item 3), each raising
+Waiting for serving across ranks (ROADMAP queue 1, item 3b; training
+across ranks is ``launch.train``'s), each raising
 ``NotImplementedError``: ``decode_mesh`` and ``prefill_meshes``, a mesh
 of more than one device, ``--disagg``, ``--tp`` > 1,
 ``make_cache_mover``, ``make_disagg_meshes``, ``make_fanin_meshes``,
@@ -72,8 +73,8 @@ PRESET_NAMES = ("baseline", "ddp", "ep", "fsdp", "serve_decode", "serve_sp",
 
 def _multi_device(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what}: serving across devices comes with the multi-GPU slice "
-        "(ROADMAP queue 1, item 3); this slice serves on one device")
+        f"{what}: serving across devices comes with serving across ranks "
+        "(ROADMAP queue 1, item 3b); serving runs on one device")
 
 
 def grow_cache(cache, target):
@@ -207,10 +208,11 @@ def _check_prompt_lens(cfg, lens: np.ndarray, b: int, s0: int,
 
 
 def _check_mesh(mesh) -> None:
-    """A (1, 1) local mesh is the one device; any larger mesh waits."""
-    if mesh is not None and np.asarray(mesh.devices).size != 1:
-        raise _multi_device(f"a mesh of {np.asarray(mesh.devices).size} "
-                            "devices")
+    """A (1, 1) mesh is the one device; any larger mesh waits."""
+    size = 1 if mesh is None else \
+        int(np.prod(list(shd.axis_sizes(mesh).values())))
+    if size != 1:
+        raise _multi_device(f"a mesh of {size} devices")
 
 
 def _params_device(params) -> torch.device:
@@ -823,7 +825,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="serve a mixed-length batch (continuous batching)")
     ap.add_argument("--disagg", action="store_true",
                     help="disaggregate prefill and decode onto separate "
-                         "meshes (comes with the multi-GPU slice)")
+                         "meshes (comes with serving across ranks)")
     ap.add_argument("--cache-transfer", default="bf16",
                     choices=list(step_lib.CACHE_TRANSFERS),
                     help="wire format of the prefill->decode cache handoff")
@@ -886,7 +888,7 @@ def main(argv=None) -> None:
     if args.tp > 1:
         raise _multi_device(f"--tp {args.tp}")
     device = resolve_device(args.device, "launch.serve")
-    mesh = make_local_mesh(device)
+    mesh = make_local_mesh(device=device)
 
     params = transformer.init_params(cfg, seed=0, device=device)
     rng = np.random.RandomState(0)

@@ -11,6 +11,16 @@ weights are the port's ``init_params(cfg, seed=0)``, not
 ``jax.random``'s; ``--device`` picks where it runs; and ``main`` takes an
 argument list and returns the Trainer's result with the wiring
 (``build``, which a caller can also run with a ``fault_hook``).
+
+Across ranks (``torchrun --nproc-per-node 4 -m repro_torch.launch.train``,
+or ``main`` called in each rank of an initialised group) it is the
+reference's single controller spread over the ranks: rank 0 holds the one
+data pipeline, the one AutoComp and the store, and sends each step's
+global batch, the one-process launcher's, to every rank, which trains on
+its rows; the step is the SPMD step on ``make_local_mesh()`` under the
+``baseline`` rules; checkpoints are written once, by rank 0; and only
+rank 0 prints. The backend is NCCL when every rank has a card of its
+own, gloo otherwise (``mesh.pick_backend``).
 """
 
 from __future__ import annotations
@@ -18,8 +28,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import os
 import time
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import (AutoCompPipeline, MoopRanker, StatsCollector,
@@ -30,7 +44,9 @@ from repro_torch.core.orient import (ComputeCostTrait,
                                      FileCountReductionTrait,
                                      FileEntropyTrait)
 from repro_torch.data import DataPipeline, TokenShardWriter, merge_shards_fn
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.dist import collectives
+from repro_torch.dist import sharding as shd
+from repro_torch.launch.mesh import init_ranks, make_local_mesh, pick_backend
 from repro_torch.lst import Catalog, InMemoryStore
 from repro_torch.lst.workload import SimClock
 from repro_torch.models import transformer
@@ -93,67 +109,117 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 @dataclasses.dataclass
 class Launch:
-    """A launcher's wiring, built and not yet run."""
+    """A launcher's wiring, built and not yet run. Across ranks ``table``,
+    ``pipe`` and ``store`` are rank 0's and ``None`` elsewhere."""
     cfg: Any
     mesh: Any
     table: Any
-    pipe: DataPipeline
-    store: InMemoryStore
+    pipe: Optional[DataPipeline]
+    store: Optional[InMemoryStore]
     trainer: Trainer
+
+
+def ranked_batches(pipe: Optional[DataPipeline], batch: int, seq_len: int,
+                   device: torch.device
+                   ) -> Callable[[], Iterator[Dict[str, torch.Tensor]]]:
+    """A batch factory for every rank: rank 0 draws each global batch from
+    ``pipe`` and broadcasts it; the others receive it. A flag sent first
+    ends every rank's stream where rank 0's ends."""
+    def factory():
+        it = pipe.prefetching_batches() if pipe is not None else None
+        head = torch.zeros(1, dtype=torch.int32, device=device)
+        while True:
+            b = next(it, None) if it is not None else None
+            head.fill_(0 if (it is not None and b is None) else 1)
+            collectives.broadcast(head)
+            if int(head.item()) == 0:
+                return
+            if b is None:
+                b = {k: torch.empty((batch, seq_len), dtype=torch.int32,
+                                    device=device)
+                     for k in ("tokens", "labels")}
+            yield {k: collectives.broadcast(b[k]) for k in
+                   ("tokens", "labels")}
+    return factory
 
 
 def build(args: argparse.Namespace,
           fault_hook: Optional[Callable[[int], None]] = None) -> Launch:
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    mesh = make_local_mesh(args.device)
-    catalog, table, pipe, clock, store = build_data(
-        cfg, batch=args.batch, seq_len=args.seq_len, device=args.device)
-    params = transformer.init_params(cfg, seed=0, device=args.device)
+    mesh = make_local_mesh(device=args.device)
+    ranked = collectives.ranked()
+    rank0 = not ranked or dist.get_rank() == 0
+    device = torch.device(args.device)
+    if device.type == "cuda" and ranked:
+        device = torch.device("cuda", torch.cuda.current_device())
+    catalog = table = pipe = clock = None
+    store = InMemoryStore()
+    if rank0:
+        catalog, table, pipe, clock, store = build_data(
+            cfg, batch=args.batch, seq_len=args.seq_len, device=device)
+    rules = shd.PRESETS["baseline"]
+    params = transformer.init_params(cfg, seed=0, device=device)
+    batches = pipe.prefetching_batches if pipe is not None else None
+    if ranked:
+        params = shd.distribute_tree(params, transformer.param_axes(cfg),
+                                     mesh, rules)
+        batches = ranked_batches(pipe, args.batch, args.seq_len, device)
     opt_state = opt_lib.init_state(
         params, error_feedback=args.grad_transport == "int8_ef")
     adamw = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=10,
                                 total_steps=args.steps)
-    step_fn = step_lib.make_train_step(
-        cfg, adamw, microbatches=args.microbatches,
-        grad_transport=args.grad_transport)
+    with shd.axis_rules(mesh, rules):
+        step_fn = step_lib.make_train_step(
+            cfg, adamw, microbatches=args.microbatches,
+            grad_transport=args.grad_transport)
 
     ckpt = CheckpointManager(store, keep_last=2)
-    autocomp = build_autocomp(catalog, clock, device=args.device)
-    state = {"i": 0}
+    tick = None
+    if rank0:
+        autocomp = build_autocomp(catalog, clock, device=device)
+        state = {"i": 0}
 
-    def tick():
-        state["i"] += 1
-        clock.advance(0.01)
-        if state["i"] % args.compact_every == 0:
-            rep = autocomp.run_cycle(catalog)
-            if rep.files_removed:
-                print(f"[autocomp] cycle: removed {rep.files_removed} files "
-                      f"-> table now {table.file_count()} files "
-                      f"(gbhr {rep.gbhr:.4f})")
+        def tick():
+            state["i"] += 1
+            clock.advance(0.01)
+            if state["i"] % args.compact_every == 0:
+                rep = autocomp.run_cycle(catalog)
+                if rep.files_removed:
+                    print(f"[autocomp] cycle: removed {rep.files_removed} "
+                          f"files -> table now {table.file_count()} files "
+                          f"(gbhr {rep.gbhr:.4f})")
 
     trainer = Trainer(
         RunnerConfig(total_steps=args.steps, ckpt_every=20),
-        step_fn, params, opt_state, pipe.prefetching_batches,
+        step_fn, params, opt_state, batches,
         ckpt=ckpt, autocomp_tick=tick, fault_hook=fault_hook)
-    return Launch(cfg, mesh, table, pipe, store, trainer)
+    return Launch(cfg, mesh, table, pipe, store if rank0 else None, trainer)
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
     args = parse_args(argv)
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        init_ranks(pick_backend(args.device, int(os.environ["WORLD_SIZE"])),
+                   device=args.device)          # under torchrun
     run = build(args)
-    print(f"[train] arch={run.cfg.name} "
-          f"params={run.cfg.param_count()/1e6:.1f}M mesh={run.mesh.shape}")
-    print(f"[data] shard files: {run.table.file_count()} "
-          f"(plan {run.pipe.plan()[0].path.split('/')[-1]}...)")
+    rank0 = run.pipe is not None            # across ranks only rank 0 prints
+    if rank0:
+        print(f"[train] arch={run.cfg.name} "
+              f"params={run.cfg.param_count()/1e6:.1f}M "
+              f"mesh={shd.axis_sizes(run.mesh)}")
+        print(f"[data] shard files: {run.table.file_count()} "
+              f"(plan {run.pipe.plan()[0].path.split('/')[-1]}...)")
     t0 = time.time()
     out = run.trainer.run_with_recovery()
     dt = time.time() - t0
     losses = [h["loss"] for h in out["history"]]
-    print(f"[train] {out['final_step']} steps in {dt:.1f}s "
-          f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+    if rank0:
+        print(f"[train] {out['final_step']} steps in {dt:.1f}s "
+              f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
     assert losses[-1] < losses[0], "training did not reduce loss"
-    print(f"[store] objects={run.store.object_count} "
-          f"rpc={run.store.metrics.rpc_total}")
+    if rank0:
+        print(f"[store] objects={run.store.object_count} "
+              f"rpc={run.store.metrics.rpc_total}")
     return {**out, "launch": run}
 
 

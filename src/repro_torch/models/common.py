@@ -4,7 +4,7 @@ embeddings, blockwise (memory-efficient) attention, losses.
 The port of ``src/repro/models/common.py``. Parameters are plain trees
 (dicts and lists) of tensors. Every parameter leaf is declared through a
 ``Spec`` carrying its shape, dtype and *logical axis names*; the dist
-layer maps logical axes onto mesh axes (on one device it maps none).
+layer maps logical axes onto mesh axes (``dist.sharding``).
 Layer stacks are stored with a leading ``layers`` axis, as in the
 reference, so a converted tree matches it leaf for leaf.
 
@@ -16,6 +16,7 @@ operands to one dtype as ``jnp.einsum`` does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -23,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist import collectives
-from repro_torch.dist.sharding import constrain
+from repro_torch.dist.sharding import constrain, is_dtensor
 
 PyTree = Any
 
@@ -150,6 +151,30 @@ def tree_init(specs: PyTree, seed: int, device: torch.device,
     return tree_map(lambda s: by_id[id(s)], specs, is_leaf=is_spec)
 
 
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """A leaf's shape and dtype, no data: the port's stand-in for
+    ``jax.ShapeDtypeStruct``."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+    @property
+    def nbytes(self) -> int:
+        return int(np.prod(self.shape)) * self.dtype.itemsize
+
+
+def tree_abstract(specs: PyTree) -> PyTree:
+    """Each ``Spec`` as the ``TensorSpec`` of the leaf it declares."""
+    return tree_map(
+        lambda s: TensorSpec(tuple(s.shape), s.dtype or DEFAULT_PARAM_DTYPE),
+        specs, is_leaf=is_spec)
+
+
+def tree_axes(specs: PyTree) -> PyTree:
+    """Each ``Spec`` as its tuple of logical axis names."""
+    return tree_map(lambda s: s.axes, specs, is_leaf=is_spec)
+
+
 def stack_layer_specs(layer_specs: PyTree, n_layers: int) -> PyTree:
     """Add a leading ``layers`` axis to every leaf spec."""
     return tree_map(
@@ -232,6 +257,23 @@ def _attn_block(q, k, v, q_pos, k_pos, causal, window, scale):
     return m, l, o
 
 
+def _attention_on_shards(q, k, v, **kw):
+    """``blockwise_attention`` of DTensors, shard by shard: attention
+    mixes positions and head features but never rows or heads, so each
+    rank runs it on its own batch rows and heads (``local_map``), as XLA's
+    SPMD partitioner does. The sequence and feature dims are gathered
+    first if sharded; the shards' layout is ``q``'s."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    place = tuple(p if isinstance(p, Shard) and p.dim in (0, 2)
+                  else Replicate() for p in q.placements)
+    fn = local_map(functools.partial(blockwise_attention, **kw),
+                   out_placements=(place,), in_placements=(place,) * 3,
+                   device_mesh=q.device_mesh, redistribute_inputs=True)
+    return fn(q, k, v)
+
+
 def blockwise_attention(q, k, v, *, causal=True, window=0,
                         q_offset=0, k_positions=None,
                         block_q=1024, block_k=1024):
@@ -251,7 +293,13 @@ def blockwise_attention(q, k, v, *, causal=True, window=0,
     carry position -1, so the mask sends them to ``NEG_INF`` and they add
     exactly 0, and padded query rows are dropped. A length the reference
     serves is tiled as the reference tiles it.
+
+    DTensor inputs run shard by shard (:func:`_attention_on_shards`).
     """
+    if is_dtensor(q):
+        return _attention_on_shards(
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            k_positions=k_positions, block_q=block_q, block_k=block_k)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     scale = 1.0 / np.sqrt(d)
@@ -360,7 +408,14 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     """Mean cross-entropy over (optionally masked) positions. fp32 internals."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if is_dtensor(logits):
+        # vocab-parallel gold logit: a masked sum, local to each vocab
+        # shard (exact: one term is the logit, the others add 0)
+        hit = torch.arange(logits.shape[-1], device=logits.device) \
+            == labels[..., None].long()
+        gold = torch.where(hit, logits, 0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = lse - gold
     if mask is not None:
         mask = mask.float()

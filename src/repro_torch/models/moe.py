@@ -65,12 +65,12 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor, mode: str = "train"
 
     Train and prefill use the einsum dispatch. The reference routes int8
     expert-parallel decode through the ``expert_a2a`` op instead; that op
-    comes with the multi-GPU slice, so reaching it here raises.
+    comes with serving across ranks, so reaching it here raises.
     """
     if mode == "decode" and current_act_transport() == "int8":
         raise NotImplementedError(
-            "moe_apply: the int8 expert_a2a dispatch comes with the "
-            "multi-GPU slice (ROADMAP queue 1, item 3)")
+            "moe_apply: the int8 expert_a2a dispatch comes with serving "
+            "across ranks (ROADMAP queue 1, item 3b)")
     b, s, d = x.shape
     n_tokens = b * s
     m = _group_size(n_tokens)

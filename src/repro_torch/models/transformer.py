@@ -21,10 +21,8 @@ optimizers and ``state_dict``.
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Union
 
-import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -32,11 +30,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs import ModelConfig
 from repro_torch.dist import collectives
 from repro_torch.dist.collectives import act_gather
-from repro_torch.dist.sharding import constrain
+from repro_torch.dist.sharding import constrain, remat_contexts
 from repro_torch.models import attention, moe, ssm, xlstm
 from repro_torch.models.common import (
-    Spec, as_positions, einsum, resolve_device, rms_norm, softmax_xent,
-    stack_layer_specs, swiglu, tree_init, tree_map,
+    Spec, TensorSpec, as_positions, einsum, resolve_device, rms_norm,
+    softmax_xent, stack_layer_specs, swiglu, tree_abstract, tree_axes,
+    tree_init, tree_map,
 )
 
 VIT_HIDDEN = 1024    # stub InternViT output dim
@@ -103,18 +102,6 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 # scales along the trailing feature axis; "f8": scale-free e4m3).
 # Recurrent-state leaves (ssm_*, xlstm blocks) are never quantized.
 QUANTIZABLE_CACHE_KEYS = ("k", "v", "latent", "k_rope")
-
-
-@dataclasses.dataclass(frozen=True)
-class TensorSpec:
-    """A leaf's shape and dtype, no data: the port's stand-in for
-    ``jax.ShapeDtypeStruct``."""
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
-
-    @property
-    def nbytes(self) -> int:
-        return int(np.prod(self.shape)) * self.dtype.itemsize
 
 
 def is_tensor_spec(x) -> bool:
@@ -350,7 +337,8 @@ def _run_stack(cfg, params, x, mode, cache=None, pos=0, cache_len_total=0):
     new_cache = None
     if mode == "train":
         for u in range(n_units):
-            x, aux = checkpoint(unit_body, x, u, use_reentrant=False)
+            x, aux = checkpoint(unit_body, x, u, use_reentrant=False,
+                                context_fn=remat_contexts)
             aux_acc = {k: aux_acc[k] + aux[k] for k in aux_acc}
     else:
         caches = []
@@ -372,7 +360,8 @@ def _run_xlstm(cfg, params, x, mode, cache=None):
     for i, bp in enumerate(params["blocks"]):
         fn = xlstm.mlstm_apply if xlstm.is_mlstm_layer(cfg, i) else xlstm.slstm_apply
         if mode == "train":
-            x, bc = checkpoint(fn, cfg, bp, x, mode, None, use_reentrant=False)
+            x, bc = checkpoint(fn, cfg, bp, x, mode, None, use_reentrant=False,
+                               context_fn=remat_contexts)
         else:
             x, bc = fn(cfg, bp, x, mode, blocks_cache[i])
         new_blocks.append(bc)
@@ -471,6 +460,16 @@ def init_params(cfg: ModelConfig, *, seed: int,
     gives other values."""
     return tree_init(param_specs(cfg), seed,
                      resolve_device(device, "init_params"), draw_on_device)
+
+
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree's ``TensorSpec``s: shapes and dtypes, no data."""
+    return tree_abstract(param_specs(cfg))
+
+
+def param_axes(cfg: ModelConfig):
+    """The parameter tree's logical axes, a tuple of names per leaf."""
+    return tree_axes(param_specs(cfg))
 
 
 def _module_of(tree) -> nn.Module:

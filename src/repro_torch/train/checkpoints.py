@@ -18,10 +18,17 @@ tree, so a checkpoint written by either package restores in the other:
 Saves may run on a host thread; the device-to-host copies are taken
 before the thread starts, so a step that runs meanwhile cannot change
 what is written. The manifest is written last (atomic publish), and
-superseded checkpoints are deleted (``keep_last``). ``restore`` lays each
-leaf out at the reference leaf's dtype and device, the one-device form of
-the reference's ``shardings=``; a mesh's shardings wait for the multi-GPU
-slice (ROADMAP queue 1, item 3).
+superseded checkpoints are deleted (``keep_last``).
+
+Across ranks (an initialised process group of more than one rank) every
+rank calls ``save`` and ``restore`` together. ``save`` gathers each
+DTensor leaf's full tensor on every rank and writes once, from rank 0, the
+bytes a one-device save of the same values writes. ``restore`` reads on
+rank 0 and lays each leaf out from there: with ``shardings=`` (a tree of
+``(mesh, placements)``, ``sharding.tree_shardings``'s) each leaf is
+scattered onto that mesh, which need not be the saving job's (the
+reference's elastic restore); a DTensor leaf of ``tree_like`` is laid out
+as it is; any other leaf is broadcast.
 """
 
 from __future__ import annotations
@@ -33,11 +40,14 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.dist import collectives
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.lst.files import DataFile
 from repro_torch.lst.storage import ObjectStore
 from repro_torch.lst.table import LogStructuredTable
-from repro_torch.models.common import tree_unflatten
+from repro_torch.models.common import tree_leaves, tree_unflatten
 
 
 def _flatten_with_path(tree: Any, prefix: str = "") -> Tuple[list, str]:
@@ -88,6 +98,17 @@ def _leaf_from_bytes(raw: bytes, shape, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
+def _is_sharding(x) -> bool:
+    return x is None or (isinstance(x, tuple) and len(x) == 2
+                         and hasattr(x[0], "mesh_dim_names"))
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 class CheckpointManager:
     def __init__(self, store: ObjectStore, prefix: str = "ckpt",
                  keep_last: int = 3,
@@ -104,9 +125,14 @@ class CheckpointManager:
         self.wait()                   # one in-flight async save at a time
         with_path, treedef = _flatten_with_path(tree)
         keys = [k for k, _ in with_path]
+        # every rank gathers its DTensor leaves (a collective); rank 0 writes
+        full = [leaf.full_tensor() if is_dtensor(leaf) else leaf
+                for _, leaf in with_path]
+        if collectives.ranked() and dist.get_rank() != 0:
+            return
         # device->host now, before any thread: a later step cannot change it
         leaves = []
-        for _, leaf in with_path:
+        for leaf in full:
             arr = _to_host(leaf)
             leaves.append((arr, _dtype_name(leaf, arr)))
 
@@ -165,12 +191,46 @@ class CheckpointManager:
         switched to ``grad_transport="int8_ef"`` keeps its fresh zero
         residual), and checkpoint leaves absent from ``tree_like`` are
         dropped. Manifests without keys fall back to positional matching.
+
+        ``shardings`` (a tree like ``tree_like`` of ``(mesh, placements)``
+        or ``None`` leaves) lays each leaf out on a mesh, scattered from
+        rank 0; a DTensor leaf of ``tree_like`` without one keeps its own
+        layout. Across ranks every rank calls ``restore`` and rank 0 reads;
+        an error there is raised on every rank.
         """
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...): laying leaves out over a mesh comes "
-                "with the multi-GPU slice (ROADMAP queue 1, item 3); on one device "
-                "each leaf takes the reference leaf's device")
+        with_path, _ = _flatten_with_path(tree_like)
+        lay = [None] * len(with_path) if shardings is None else \
+            tree_leaves(shardings, _is_sharding)
+        if len(lay) != len(with_path):
+            raise ValueError(f"shardings has {len(lay)} leaves, the tree "
+                             f"{len(with_path)}")
+        ranked = collectives.ranked()
+        if ranked and dist.get_rank() != 0:
+            return self._restore_from_rank0(tree_like, with_path, lay)
+        try:
+            step, matched = self._match(with_path, step, partial_ok)
+        except (FileNotFoundError, KeyError, AssertionError) as e:
+            if ranked:              # the other ranks raise it too
+                dist.broadcast_object_list([e], 0)
+            raise
+        if ranked:
+            dist.broadcast_object_list(
+                [(step, [ent is not None for _, _, ent in matched])], 0)
+        out = []
+        for (key, ref, ent), sh in zip(matched, lay):
+            ref_t = ref if isinstance(ref, torch.Tensor) \
+                else torch.from_numpy(np.array(ref))
+            if ent is None:                    # partial_ok: keep current value
+                out.append(ref_t)
+                continue
+            arr = _leaf_from_bytes(self.store.get(ent["path"]),
+                                   ent["shape"], ent["dtype"])
+            out.append(self._lay_out(arr, ref_t, sh, ranked))
+        return tree_unflatten(tree_like, out), step
+
+    def _match(self, with_path, step, partial_ok) -> Tuple[int, list]:
+        """The step to restore and ``(key, ref, manifest entry or None)``
+        for each leaf of the tree."""
         steps = self.available_steps()
         if not steps:
             raise FileNotFoundError("no checkpoints available")
@@ -178,7 +238,6 @@ class CheckpointManager:
         base = f"{self.prefix}/step-{step:08d}"
         manifest = json.loads(self.store.get(f"{base}/MANIFEST.json"))
         ents = manifest["leaves"]
-        with_path, _ = _flatten_with_path(tree_like)
         if all("key" in e for e in ents):
             by_key = {e["key"]: e for e in ents}
             matched = [(k, ref, by_key.get(k)) for k, ref in with_path]
@@ -196,18 +255,50 @@ class CheckpointManager:
                 f"leaf count mismatch: {len(with_path)} vs {len(ents)}"
             matched = [(k, ref, ent)
                        for (k, ref), ent in zip(with_path, ents)]
-        out = []
         for key, ref, ent in matched:
+            shape = tuple(np.shape(ref))
+            assert ent is None or tuple(ent["shape"]) == shape, \
+                f"shape mismatch at leaf {key}: {ent['shape']} vs {shape}"
+        return step, matched
+
+    @staticmethod
+    def _lay_out(arr: Optional[torch.Tensor], ref: torch.Tensor, sh,
+                 ranked: bool):
+        """One restored leaf (``arr`` on rank 0, ``None`` elsewhere) at
+        ``ref``'s dtype: scattered to ``sh``'s placements, or to a DTensor
+        ``ref``'s own; otherwise at ``ref``'s device, broadcast from rank
+        0 across ranks."""
+        from torch.distributed.tensor import distribute_tensor
+
+        if sh is None and is_dtensor(ref):
+            sh = (ref.device_mesh, tuple(ref.placements))
+        if sh is not None:
+            mesh, placements = sh
+            dev = _mesh_device(mesh)
+            full = torch.empty(ref.shape, dtype=ref.dtype, device=dev) \
+                if arr is None else arr.to(device=dev, dtype=ref.dtype)
+            return distribute_tensor(full, mesh, list(placements),
+                                     src_data_rank=0)
+        if arr is None:
+            arr = torch.empty(ref.shape, dtype=ref.dtype, device=ref.device)
+        else:
+            arr = arr.to(device=ref.device, dtype=ref.dtype)
+        return collectives.broadcast(arr) if ranked else arr
+
+    def _restore_from_rank0(self, tree_like, with_path, lay):
+        """A rank other than 0: take the step and the leaves that rank 0
+        read, in its order."""
+        got = [None]
+        dist.broadcast_object_list(got, 0)
+        if isinstance(got[0], BaseException):
+            raise got[0]
+        step, present = got[0]
+        out = []
+        for (_, ref), sh, here in zip(with_path, lay, present):
             ref_t = ref if isinstance(ref, torch.Tensor) \
                 else torch.from_numpy(np.array(ref))
-            if ent is None:                    # partial_ok: keep current value
-                out.append(ref_t)
-                continue
-            arr = _leaf_from_bytes(self.store.get(ent["path"]),
-                                   ent["shape"], ent["dtype"])
-            assert tuple(arr.shape) == tuple(ref_t.shape), \
-                f"shape mismatch at leaf {key}: {arr.shape} vs {ref_t.shape}"
-            out.append(arr.to(device=ref_t.device, dtype=ref_t.dtype))
+            out.append(self._lay_out(None, ref_t, sh, True) if here
+                       else ref_t)
         return tree_unflatten(tree_like, out), step
 
     # -------------------------------------------------------------------- gc

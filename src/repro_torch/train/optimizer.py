@@ -103,18 +103,20 @@ def _ef_shape(p: torch.Tensor, ef_devices: Optional[int]) -> Tuple[int, ...]:
 
 def init_state(params, error_feedback: bool = False,
                ef_devices: Optional[int] = None) -> Dict[str, Any]:
-    """Zero f32 moments (and residual) beside each parameter, and an int32
-    ``step`` of 0 on the parameters' device."""
+    """Zero f32 moments (and residual) beside each parameter, laid out as
+    the parameter (a DTensor parameter gets DTensor moments of its
+    placements), and an int32 ``step`` of 0 on the parameters' device."""
     def f32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
 
     device = tree_leaves(params)[0].device
     state = {"mu": tree_map(f32, params), "nu": tree_map(f32, params),
              "step": torch.zeros((), dtype=torch.int32, device=device)}
     if error_feedback:
         state["ef"] = tree_map(
-            lambda p: torch.zeros(_ef_shape(p, ef_devices),
-                                  dtype=torch.float32, device=p.device),
+            lambda p: f32(p) if ef_devices is None else torch.zeros(
+                _ef_shape(p, ef_devices), dtype=torch.float32,
+                device=p.device),
             params)
     return state
 

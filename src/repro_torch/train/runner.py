@@ -7,9 +7,9 @@ Production behaviors implemented (and exercised by tests/examples):
   * checkpoint/restart: periodic async saves; ``run_with_recovery`` restores
     from the latest checkpoint after a (simulated) preemption and continues
     — loss trajectory is continuous across the restart;
-  * elastic scaling: restore works under a different microbatching (on
-    one device here; a different data-parallel degree waits for the
-    multi-GPU slice, ROADMAP queue 1, item 3);
+  * elastic scaling: restore works under a different microbatching, and
+    across ranks onto another mesh (``CheckpointManager.restore`` lays a
+    DTensor leaf out as the live one, or by ``shardings=``);
   * straggler mitigation: per-step host timing with a rolling median; steps
     slower than ``straggler_factor`` x median are flagged, and a pluggable
     policy reacts (on a real fleet: evict/replace the slow host; here the

@@ -7,9 +7,19 @@ trees, as the reference's does. The serve steps enter the activation
 transport and KV storage scopes around every call and run under
 ``torch.inference_mode()``.
 
-Waiting for the multi-GPU slice (ROADMAP queue 1, item 3): the explicit
-data-parallel step (``mesh=<...>``, the reference's
-``_data_parallel_step``).
+The train step has three forms, as in the reference:
+
+- one device (``mesh=None`` outside any ``DeviceMesh`` context);
+- the explicit data-parallel step (``mesh=<DeviceMesh>``, the reference's
+  ``_data_parallel_step``): parameters and moments replicated, each rank
+  on its rows of the global batch, the gradient reduction explicit (a
+  bf16 ``all_reduce`` or the two-stage int8 exchange), so the bytes on
+  the wire are the transport's;
+- the SPMD step (``mesh=None`` inside ``sharding.axis_rules(<DeviceMesh>,
+  rules)``, the launcher's form): parameters and moments are DTensors
+  laid out by the rules, the batch ``Shard(0)`` over data, the model's
+  ops run on DTensors, and each gradient is redistributed to its
+  parameter's placements before AdamW.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.dist import collectives
+from repro_torch.dist import sharding
 from repro_torch.models import registry as model_registry
 from repro_torch.models import transformer
 from repro_torch.models.common import (tree_leaves, tree_map,
@@ -48,12 +59,26 @@ def _split_microbatches(batch: Dict[str, Any], n_mb: int) -> Dict[str, Any]:
     return {k: split(v) for k, v in batch.items()}
 
 
-def _int8_ef_transport(grads, opt_state, axis_name, block):
+def _microbatches(batch: Dict[str, Any], n_mb: int) -> list:
+    """``batch`` as ``n_mb`` dicts of consecutive row blocks."""
+    mb = _split_microbatches(batch, n_mb)
+    return [{k: v[i] for k, v in mb.items()} for i in range(n_mb)]
+
+
+def _int8_ef_transport(grads, opt_state, axis_name, block, mesh=None):
     """Per-leaf int8 + error-feedback reduction; the residual lives in
     ``opt_state["ef"]`` (a ``KeyError`` when the state has none)."""
-    out = tree_map(
-        lambda g, e: collectives.compressed_psum(g, axis_name, e, block=block),
-        grads, opt_state["ef"])
+    def leaf(g, e):
+        if not sharding.is_dtensor(g):
+            return collectives.compressed_psum(g, axis_name, e, block=block,
+                                               mesh=mesh)
+        # an SPMD leaf: quantized whole, as on one device, then each rank
+        # keeps its shards; one leaf at a time is whole on a rank
+        out, new_e = collectives.compressed_psum(
+            g.full_tensor(), None, e.full_tensor(), block=block)
+        return (_distribute_as(out, g), _distribute_as(new_e, e))
+
+    out = tree_map(leaf, grads, opt_state["ef"])
     new_grads, new_ef = tree_unzip(out, 2)
     return new_grads, {**opt_state, "ef": new_ef}
 
@@ -74,33 +99,33 @@ def make_train_step(cfg: ModelConfig, adamw: opt_lib.AdamWConfig,
     blockwise int8 with error feedback (``collectives.compressed_psum``)
     whose residual rides in ``opt_state["ef"]``; build that state with
     ``opt_lib.init_state(params, error_feedback=True)``.
+
+    ``mesh=<DeviceMesh>`` gives the explicit data-parallel step over
+    ``data_axis`` (see :func:`_data_parallel_step`). With ``mesh=None``
+    inside ``sharding.axis_rules(<DeviceMesh>, rules)`` the step is the
+    SPMD step over that context (see :func:`_spmd_step`); elsewhere it is
+    the one-device step.
     """
     if grad_transport not in GRAD_TRANSPORTS:
         raise ValueError(f"unknown grad_transport {grad_transport!r}; "
                          f"expected one of {GRAD_TRANSPORTS}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step(mesh=...): the explicit data-parallel step "
-            "comes with the multi-GPU slice (ROADMAP queue 1, item 3); on one "
-            "device pass mesh=None")
     loss_fn = make_loss_fn(cfg)
 
     def grad_fn(params, batch):
         leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
         loss, metrics = loss_fn(tree_unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(t) if g is None else g
-                 for t, g in zip(leaves, grads)]
+        grads = [torch.zeros_like(t) if g is None
+                 else _to_param_layout(g, t) for t, g in zip(leaves, grads)]
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 grads)
 
-    def grads_and_metrics(params, batch):
+    def grads_and_metrics(params, batch, split=_microbatches):
+        mbs = split(batch, microbatches)
         if microbatches > 1:
-            mb = _split_microbatches(batch, microbatches)
             gsum, lsum, metrics = None, 0.0, None
-            for i in range(microbatches):
-                loss, metrics, grads = grad_fn(
-                    params, {k: v[i] for k, v in mb.items()})
+            for mb in mbs:
+                loss, metrics, grads = grad_fn(params, mb)
                 grads = [g.float() for g in grads]
                 gsum = grads if gsum is None else \
                     [a + g for a, g in zip(gsum, grads)]
@@ -110,11 +135,11 @@ def make_train_step(cfg: ModelConfig, adamw: opt_lib.AdamWConfig,
                 grads = [g.to(torch.bfloat16) for g in grads]
             metrics["loss"] = lsum / microbatches
         else:
-            _, metrics, grads = grad_fn(params, batch)
+            _, metrics, grads = grad_fn(params, mbs[0])
         return tree_unflatten(params, grads), metrics
 
-    def train_step(params, opt_state, batch):
-        grads, metrics = grads_and_metrics(params, batch)
+    def train_step(params, opt_state, batch, split=_microbatches):
+        grads, metrics = grads_and_metrics(params, batch, split)
         if grad_transport == "int8_ef":
             grads, opt_state = _int8_ef_transport(grads, opt_state, None,
                                                   ef_block)
@@ -123,7 +148,136 @@ def make_train_step(cfg: ModelConfig, adamw: opt_lib.AdamWConfig,
         metrics.update(opt_metrics)
         return new_params, new_opt, metrics
 
-    return train_step
+    if mesh is not None:
+        return _data_parallel_step(grads_and_metrics, adamw, mesh, data_axis,
+                                   grad_transport, ef_block)
+    active = sharding.current_context()
+    if active is None or not sharding.is_device_mesh(active[0]):
+        return train_step
+    return _spmd_step(train_step, *active)
+
+
+def _distribute_as(full: torch.Tensor, like) -> Any:
+    """``full``, held whole by every rank, as a DTensor laid out as
+    ``like``: each rank keeps a copy of its shard, nothing moves, and the
+    whole tensor is freed (a shard that is a view would keep it)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    out = distribute_tensor(full, like.device_mesh, like.placements,
+                            src_data_rank=None)
+    return DTensor.from_local(out.to_local().clone(), like.device_mesh,
+                              like.placements, shape=like.shape,
+                              stride=like.stride())
+
+
+def _to_param_layout(g, t):
+    """A DTensor gradient redistributed to its parameter's placements
+    (a reduce-scatter or all-reduce of the partial sums); a plain one as
+    it is."""
+    if sharding.is_dtensor(g) and tuple(g.placements) != tuple(t.placements):
+        return g.redistribute(t.device_mesh, t.placements)
+    return g
+
+
+def _rows(x: torch.Tensor, rank: int, world: int) -> torch.Tensor:
+    """Rows ``[rank * B / world, (rank + 1) * B / world)`` of ``x``."""
+    b = x.shape[0]
+    if b % world:
+        raise ValueError(f"a batch of {b} rows does not split over "
+                         f"{world} ranks")
+    return x[rank * b // world:(rank + 1) * b // world]
+
+
+def _data_parallel_step(grads_and_metrics, adamw, mesh, data_axis,
+                        grad_transport, ef_block):
+    """The explicit data-parallel step over ``data_axis`` of ``mesh``.
+
+    Every rank passes the same global batch and takes its rows; its
+    gradients are those of the mean loss over its rows, divided by the
+    axis size ``W`` in f32 before the reduction: a bf16 ``all_reduce``,
+    or under ``int8_ef`` the two-stage int8 exchange, whose residual is
+    this rank's ``(1, *shape)`` row of ``opt_state["ef"]`` (build the
+    state with ``init_state(params, error_feedback=True,
+    ef_devices=1)``). The metrics are averaged over the axis in one f32
+    ``all_reduce``; the parameters and moments stay replicated. A
+    checkpoint of this state holds the saving rank's residual row.
+    """
+    group = collectives.axis_group(data_axis, mesh)
+    w = sharding.axis_sizes(mesh)[data_axis]
+    rank = 0 if group is None else torch.distributed.get_rank(group)
+
+    def device_step(params, opt_state, batch):
+        local = {k: _rows(v, rank, w) for k, v in batch.items()}
+        grads, metrics = grads_and_metrics(params, local)
+        grads = tree_map(lambda g: g.float() / w, grads)
+        if grad_transport == "bf16":
+            grads = tree_map(lambda g: g.to(torch.bfloat16), grads)
+            if group is not None:
+                grads = tree_map(
+                    lambda g: collectives.all_reduce(g, group), grads)
+        else:
+            row = {**opt_state, "ef": tree_map(lambda e: e[0],
+                                               opt_state["ef"])}
+            grads, row = _int8_ef_transport(grads, row, data_axis,
+                                            ef_block, mesh)
+            opt_state = {**opt_state,
+                         "ef": tree_map(lambda e: e[None], row["ef"])}
+        names = sorted(metrics)
+        stacked = torch.stack([metrics[k].float() for k in names])
+        if group is not None:
+            stacked = collectives.all_reduce(stacked, group)
+        metrics = dict(zip(names, stacked / w))
+        new_params, new_opt, opt_metrics = opt_lib.apply_updates(
+            adamw, params, grads, opt_state)
+        metrics.update(opt_metrics)
+        return new_params, new_opt, metrics
+
+    return device_step
+
+
+def _spmd_step(train_step, mesh, rules):
+    """The SPMD step over ``mesh`` under ``rules``.
+
+    The parameters and the optimizer state are DTensors (lay them out with
+    ``sharding.distribute_tree(tree, axes, mesh, rules)``, the moments by
+    ``optimizer.state_axes``). Every rank passes the same global batch,
+    splits it into microbatches of consecutive rows, as the one-device
+    step does, and enters its rows of each microbatch as ``Shard(0)`` over
+    the batch axes: microbatch ``i`` holds the same rows on every mesh,
+    and so do the last microbatch's metrics. The model runs on
+    DTensors under the rules (``axis_rules`` reads plain tensors as
+    replicated); under ``int8_ef`` each gradient and residual is quantized
+    whole, as on one device, and laid back out. The metrics come back as
+    plain tensors.
+    """
+    from torch.distributed.tensor import DTensor
+
+    names = list(mesh.mesh_dim_names)
+
+    def enter(global_batch: Dict[str, Any], n_mb: int) -> list:
+        rows = next(iter(global_batch.values())).shape[0] // n_mb
+        spec = sharding.resolve_spec((rows,), ("batch",), mesh, rules)
+        axes = spec[0] if spec else ()
+        axes = axes if isinstance(axes, tuple) else (axes,)
+        shards, coord = 1, 0
+        for a in axes:       # this rank's shard index, major to minor
+            size = mesh.size(names.index(a))
+            coord = coord * size + mesh.get_local_rank(a)
+            shards *= size
+        place = sharding.placements(spec, mesh)
+        return [{k: DTensor.from_local(_rows(v, coord, shards), mesh, place)
+                 for k, v in mb.items()}
+                for mb in _microbatches(global_batch, n_mb)]
+
+    def spmd_step(params, opt_state, batch):
+        with sharding.axis_rules(mesh, rules):
+            new_params, new_opt, metrics = train_step(
+                params, opt_state, batch, split=enter)
+        return new_params, new_opt, {
+            k: v.full_tensor() if sharding.is_dtensor(v) else v
+            for k, v in metrics.items()}
+
+    return spmd_step
 
 
 def _check_act_transport(act_transport: Optional[str]) -> None:

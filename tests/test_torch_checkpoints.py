@@ -178,7 +178,7 @@ def test_restore_takes_each_reference_leaf_dtype():
     assert got["w"].dtype == torch.bfloat16
     assert torch.equal(got["w"].float(), torch.full((2, 2), 1.5))
     assert int(got["n"]) == 5
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    with pytest.raises(ValueError, match="shardings has 1 leaves"):
         mgr.restore({"w": torch.zeros(2, 2), "n": 0}, shardings=object())
 
 

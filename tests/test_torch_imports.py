@@ -4,7 +4,8 @@ alone.
 Every module under ``src/repro_torch`` (the model slice's ``configs``,
 ``dist`` and ``models``, the training slice's ``train`` and ``launch``,
 and the serving slice's ``configs.shapes``, ``models.registry``,
-``dist.fanin`` and ``launch.serve`` included) imports in a fresh interpreter with no Triton and no
+``dist.fanin`` and ``launch.serve`` included, and the multi-rank slice's
+``dist.spawn``) imports in a fresh interpreter with no Triton and no
 CUDA, and leaves neither ``jax``, nor ``ml_dtypes``, nor any module of the
 JAX package in ``sys.modules``; a static scan finds no import of any of
 them; and the merge's default device refuses to run silently on the CPU.
@@ -104,6 +105,37 @@ def test_the_training_slice_is_collected():
                 "repro_torch.train.runner", "repro_torch.launch",
                 "repro_torch.launch.mesh", "repro_torch.launch.train"):
         assert mod in names, mod
+
+
+def test_the_ranks_slice_is_collected():
+    names = _port_modules()
+    for mod in ("repro_torch.dist.spawn", "repro_torch.dist.sharding",
+                "repro_torch.dist.collectives", "repro_torch.launch.mesh"):
+        assert mod in names, mod
+
+
+def test_the_ranks_slice_imports_without_a_process_group():
+    """Importing the multi-rank modules starts no process, joins no group
+    and touches no device: DTensor and the spawn context load lazily."""
+    code = (
+        "import sys\n"
+        "sys.modules['triton'] = None\n"
+        "import torch.distributed as dist\n"
+        "from repro_torch.dist import collectives, sharding, spawn\n"
+        "from repro_torch.launch import mesh, train\n"
+        "from repro_torch.train import checkpoints, step\n"
+        "assert not dist.is_initialized()\n"
+        "assert not collectives._staging\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'ml_dtypes', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
 
 
 @pytest.mark.parametrize("path", sorted(

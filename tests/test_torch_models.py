@@ -240,6 +240,6 @@ def test_other_modes_wait_for_serving():
     batch = {"tokens": torch.zeros(1, 1, dtype=torch.int32),
              "pos": torch.tensor(3, dtype=torch.int32)}
     with collectives.act_transport_scope("int8"), \
-            pytest.raises(NotImplementedError, match="queue 1, item 3"):
+            pytest.raises(NotImplementedError, match="queue 1, item 3b"):
         tf.forward(moe_cfg, moe_params, batch, mode="decode", cache=cache,
                    cache_len_total=8)

@@ -263,5 +263,7 @@ def test_compressed_psum_bit_exact(name, dtype, with_err):
 
 
 def test_compressed_psum_over_an_axis_waits_for_multi_gpu():
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    """An axis now names a mesh dim: outside any mesh it is an error; the
+    exchange itself is held in test_torch_collectives_ranks.py."""
+    with pytest.raises(ValueError, match="names no mesh"):
         coll.compressed_psum(torch.ones(4), "data")

@@ -202,5 +202,5 @@ def test_entry_points_refuse_without_a_card(monkeypatch):
         mesh_lib.make_local_mesh()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch.main(["--smoke", "--steps", "2"])
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    with pytest.raises(ValueError, match="a world of 256 ranks"):
         mesh_lib.make_production_mesh()

@@ -160,7 +160,7 @@ def test_moe_int8_act_decode_waits_for_expert_a2a(models):
     """The reference sends int8 MoE decode through ``expert_a2a``; the
     port raises, naming the multi-GPU item."""
     _, _, cfg, tp = models("qwen3-moe-30b-a3b")
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 3b"):
         serve.generate(cfg, tp, _prompts(cfg, 2, 8), max_new=2,
                        act_transport="int8")
 
@@ -570,7 +570,7 @@ def test_fanin_module_is_the_reference_copy():
                                 dict(prefill_meshes=[object()])])
 def test_multi_device_arguments_wait_for_item_3(dense, kw):
     cfg, params = dense
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 3b"):
         serve.generate(cfg, params, _prompts(cfg, 2, 8), max_new=2, **kw)
 
 
@@ -578,7 +578,7 @@ def test_multi_device_arguments_wait_for_item_3(dense, kw):
                                 "make_fanin_meshes", "disagg_decode_report",
                                 "fanin_report"])
 def test_multi_device_functions_wait_for_item_3(fn):
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 3b"):
         getattr(serve, fn)(smoke_config("granite-3-8b"))
 
 
@@ -588,10 +588,10 @@ def test_a_larger_mesh_waits_but_a_local_one_serves(dense):
     prompts = _prompts(cfg, 2, 8)
     two = LocalMesh(("data", "model"),
                     np.array([[torch.device("cpu")] * 2], dtype=object))
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 3b"):
         serve.generate(cfg, params, prompts, max_new=2, mesh=two)
     out = serve.generate(cfg, params, prompts, max_new=2,
-                         mesh=make_local_mesh("cpu"))
+                         mesh=make_local_mesh(device="cpu"))
     assert (out == serve.generate(cfg, params, prompts, max_new=2)).all()
 
 
@@ -625,7 +625,7 @@ def test_main_defaults_to_the_card_and_refuses_without_one(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--max-new", "1"])
     for flags in (["--disagg"], ["--tp", "2"]):
-        with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 3b"):
             serve.main(flags + ["--device", "cpu"])
 
 

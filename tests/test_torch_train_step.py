@@ -126,8 +126,21 @@ def test_unknown_transport_rejected():
 
 
 def test_mesh_step_waits_for_multi_gpu():
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        step_lib.make_train_step(CFG, opt.AdamWConfig(), mesh=object())
+    """``mesh=`` gives the data-parallel step, held across ranks in
+    ``test_torch_dp_step.py``. On the one-process mesh, a data axis of
+    one, it trains on the whole batch: its loss is the one-device
+    step's."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    params = params_from_jax(CFG, jax.tree.map(
+        np.asarray, f32_weights("paper-lm-100m")), device="cpu")
+    nb = {k: torch.from_numpy(v) for k, v in next(batches(CFG.vocab)).items()}
+    one = step_lib.make_train_step(CFG, opt.AdamWConfig())
+    dp = step_lib.make_train_step(CFG, opt.AdamWConfig(),
+                                  mesh=make_local_mesh(device="cpu"))
+    want = one(params, opt.init_state(params), nb)[2]
+    got = dp(params, opt.init_state(params), nb)[2]
+    assert float(got["loss"]) == float(want["loss"])
 
 
 def test_split_microbatches_matches_reference():
