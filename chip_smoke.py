@@ -2283,6 +2283,7 @@ class ServeProbe:
         self.prefill_s, self.decode_s, self.gather_s, self.scatter_s = \
             [], [], [], []
         self.prefill_logits, self.decode_logits = [], []
+        self.first_decode_tokens = None   # the first decode call's input
         self.t0 = self.ttft_s = None
         self.finite, self.n_decode = True, 0
 
@@ -2302,7 +2303,7 @@ class ServeProbe:
             if after is not None:
                 after(out)
             if logits is not None:
-                lg = out[0] if isinstance(out, tuple) else out
+                lg = serve._full(out[0] if isinstance(out, tuple) else out)
                 probe.finite &= bool(torch.isfinite(lg.float()).all())
                 if probe.keep_all or not logits:
                     logits.append(lg.detach().float().cpu())
@@ -2330,6 +2331,9 @@ class ServeProbe:
 
             def decode(*args):
                 probe.n_decode += 1
+                if probe.first_decode_tokens is None:
+                    probe.first_decode_tokens = serve._full(
+                        args[-1]["tokens"]).cpu().numpy()
                 if probe.n_decode == probe.profile_call:
                     out = []
                     profile_step(lambda: out.append(timed(*args)),
@@ -2698,15 +2702,18 @@ RANKS_PLAN = {
     # at full width, depth cut to 4 of 40 layers, batch to 2 x 2048
     "spmd_arch": "granite-3-8b", "spmd_layers": 4, "spmd_model": 2,
     "spmd_batch": 2, "spmd_seq": 2048, "spmd_steps": 3,
-    # (d) the launcher's wiring at its defaults, cut to fit the phase (on
-    # an NVIDIA H100 80GB HBM3 at 700 W a step across 4 ranks sharing the
-    # card took 7.6 s, against 0.4 s in one process): 6 of its 60 steps,
-    # an AutoComp cycle every 3 steps instead of 25 and a checkpoint every
-    # 2 instead of 20; then steps 4-5 again from the step-4 checkpoint
+    # (d) the launcher's wiring at its defaults, cut to fit phases 12 and
+    # 13 in one command (on an NVIDIA H100 80GB HBM3 at 700 W a step
+    # across 4 ranks sharing the card took 6.7-9.0 s, against 0.3 s in
+    # one process): 4 of its 60 steps (6 until phase 13 came), an
+    # AutoComp cycle every 3 steps instead of 25 and a checkpoint every 2
+    # instead of 20; then steps 2-3 again from the step-2 checkpoint
     # restored with shardings=
-    "launch_argv": ["--steps", "6", "--compact-every", "3"],
-    "launch_ckpt_every": 2, "launch_restore": 4,
+    "launch_argv": ["--steps", "4", "--compact-every", "3"],
+    "launch_ckpt_every": 2, "launch_restore": 2,
     "smoke": False, "device": "cuda",
+    # phase 13, serving across the same ranks (SERVE_RANKS_PLAN below)
+    "serve": None,
 }
 RANKS_ADAMW = {"lr": 1e-3, "warmup_steps": 10, "total_steps": 60}
 # Each arm's step against one process on the same batches, beyond the
@@ -2982,6 +2989,8 @@ def ranks_rank(rank: int, world: int, init: str, backend: str, plan: dict,
              ("dp", lambda: ranks_dp(plan, mesh, dev, seed)),
              ("spmd", lambda: ranks_spmd(plan, dev, seed)),
              ("launch", lambda: ranks_launch(plan, rank, dev)))
+    if plan.get("serve"):
+        parts += (("serve", lambda: ranks_serve(plan, rank, dev, seed)),)
     for part, fn in parts:
         t0 = time.perf_counter()
         out[part] = fn()
@@ -3030,10 +3039,11 @@ def worst_rel(got, want) -> float:
     return max(abs(g - w) / abs(w) for g, w in zip(got, want))
 
 
-def phase_ranks(args, dev, smi: str, plan: Optional[dict] = None) -> int:
-    """Phase 12: training across ranks. Returns ``compact_chunks``'s
-    launches on the launcher's run across the ranks (the ``train@4``
-    path)."""
+def phase_ranks(args, dev, smi: str, plan: Optional[dict] = None) -> tuple:
+    """Phases 12 and 13: training, then serving, across one group of
+    ranks. Returns ``compact_chunks``'s launches on the launcher's run
+    across the ranks (the ``train@4`` path) and the kernels' launches on
+    the ``serve@4`` path (``None`` without a serve plan)."""
     from repro_torch.dist.spawn import run_ranks
     from repro_torch.launch.mesh import pick_backend
 
@@ -3186,7 +3196,454 @@ def phase_ranks(args, dev, smi: str, plan: Optional[dict] = None) -> int:
         assert nc["round_trip"] and rel <= bar, rel
         assert norm_rel <= RANKS_NORM_BAR, norm_rel
     print(f"train/ranks: phase wall {time.perf_counter() - t_phase} s")
-    return ln[0]["chunks"]
+    serve_launches = None
+    if plan.get("serve"):
+        serve_launches = report_serve_ranks(res, plan, args, smi)
+    return ln[0]["chunks"], serve_launches
+
+
+# ------------------------------------------------------------ serve/ranks
+# Phase 13: serving across the same W ranks, run inside phase 12's group
+# after its parts free their memory (one start-up of the processes and
+# their CUDA contexts). On one card the ranks share it over gloo, as in
+# phase 12: the numbers are 4 processes on one H100, not a multi-card
+# figure.
+SERVE_RANKS_PLAN = {
+    # (a)-(c) Granite-3-8B at full width, depth cut to 4 of 40 layers;
+    # phase 11's traffic: requests of 512-2048 tokens from --seed in a
+    # 2048-token buffer, cut to 16 new greedy tokens (phase 11: 64)
+    "arch": SERVE_ARCH, "layers": 4, "batch": SERVE_BATCH,
+    "buffer": SERVE_BUFFER, "len_range": SERVE_LEN_RANGE, "new": 16,
+    "slots": SERVE_SLOTS, "workers": SERVE_WORKERS,
+    "classes": SERVE_CLASSES,
+    # (d) Qwen3-MoE-30B-A3B at full width, depth cut to 2 of 48 layers
+    # (every rank holds the whole model before keeping its shard: 1.2 GB
+    # of experts a layer), 4 requests of 512 tokens, 8 new
+    "moe_arch": "qwen3-moe-30b-a3b", "moe_layers": 2, "moe_batch": 4,
+    "moe_len": 512, "moe_new": 8,
+    # (e) each decoding family's smoke config in f32 (internvl2 needs
+    # image patches, hubert has no decode: neither is served whole)
+    "families": ("granite-3-8b", "qwen3-moe-30b-a3b", "minicpm3-4b",
+                 "hymba-1.5b", "xlstm-125m"),
+    "family_batch": 2, "family_len": 10, "family_new": 6,
+    # the report's pricing, an NVIDIA H100 SXM's: NVLink 4 at 450 GB/s a
+    # direction (the ranks here share one card and cross no link), HBM3
+    "ici_bw": 450e9, "hbm_bw": HBM_BYTES_PER_S,
+}
+
+
+def serve_ranks_arms(meshes: dict, sp: dict, prios: np.ndarray) -> list:
+    """(name, generate kwargs, the kwargs of its one-process reference)."""
+    colo, pre, dec, pres, fdec = (meshes[k] for k in
+                                  ("colo", "pre", "dec", "pres", "fdec"))
+    dis = dict(mesh=pre, decode_mesh=dec)
+    fan = dict(workers=sp["workers"], slots=sp["slots"], evict="priority",
+               priorities=prios)
+    return [
+        ("colocated bf16", dict(mesh=colo), {}),
+        ("colocated int8", dict(mesh=colo, act_transport="int8"),
+         dict(act_transport="int8")),
+        ("disagg bf16xbf16", dis, {}),
+        ("disagg int8xbf16", dict(dis, cache_transfer="int8"), {}),
+        ("disagg int8xint8", dict(dis, cache_transfer="int8",
+                                  kv_storage="int8"), {}),
+        ("disagg bf16xf8", dict(dis, kv_storage="f8"), {}),
+        ("slots bf16", dict(dis, stream="slots", slots=sp["slots"]),
+         dict(stream="slots", slots=sp["slots"])),
+        ("fanin", dict(fan, mesh=pres[0], prefill_meshes=pres,
+                       decode_mesh=fdec), fan),
+    ]
+
+
+def stored_bytes(cfg, kw: dict, rows: int, total: int) -> int:
+    """This rank's bytes of the decode-side cache as stored: each leaf's
+    bytes over its shard count on the decode mesh (0 off it)."""
+    from repro_torch.dist import sharding as shd
+
+    mesh = kw.get("decode_mesh", kw.get("mesh"))
+    if shd.is_device_mesh(mesh) and mesh.get_coordinate() is None:
+        return 0
+    rules = shd.PRESETS["serve_decode"] if "decode_mesh" in kw \
+        else shd.PRESETS["serve_sp"]
+    st = kw.get("kv_storage", "bf16")
+    n = 0
+    for leaf, la in zip(
+            tree_leaves(model_tf.abstract_cache(cfg, rows, total,
+                                                kv_storage=st),
+                        is_leaf=model_tf.is_tensor_spec),
+            tree_leaves(model_tf.cache_axes(cfg, rows, total, kv_storage=st),
+                        is_leaf=model_tf.is_axes)):
+        spec = shd.resolve_spec(leaf.shape, tuple(la), mesh, rules)
+        n += leaf.nbytes // shd.spec_shard_count(spec, mesh)
+    return n
+
+
+def serve_ranks_run(label: str, fn, dev) -> tuple:
+    """``fn()`` under a :class:`ServeProbe`: its output and the arm's
+    numbers on this rank."""
+    coll.reset_wire_bytes()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    with ServeProbe(label) as probe:
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        wall = time.perf_counter() - t0
+    return out, {
+        "wall_s": wall, "ttft_s": probe.ttft_s, "n_decode": probe.n_decode,
+        "decode_ms": med_ms(probe.decode_s),
+        "prefill_ms": med_ms(probe.prefill_s),
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / (1 << 30)
+        if dev.type == "cuda" else float("nan"),
+        "wire": coll.wire_bytes(), "finite": probe.finite,
+        "first_decode": probe.decode_logits[0].numpy()
+        if probe.decode_logits else None,
+        "first_decode_tokens": probe.first_decode_tokens,
+        "first_prefill": probe.prefill_logits[0].numpy()
+        if probe.prefill_logits else None}
+
+
+def ranks_serve(plan: dict, rank: int, dev, seed: int) -> dict:
+    """Phase 13 on one rank: (a)-(c) Granite-3-8B over the meshes, (d)
+    the MoE under ``ep``, (e) the smoke families, the disaggregated
+    report; rank 0 also runs each arm's one-process reference on its
+    device (the other ranks wait in their next collective)."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels.expert_a2a import ops as a2a_ops
+    from repro_torch.launch import mesh as mesh_lib
+
+    sp = plan["serve"]
+    kern.reset_launches()
+    reset_sweep_launches()
+    out = {"arms": {}, "ref": {}}
+    cfg = ranks_config(plan, sp["arch"], sp["layers"])
+    params = model_tf.init_params(cfg, seed=seed, device=dev,
+                                  draw_on_device=dev.type == "cuda")
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(sp["len_range"][0], sp["len_range"][1] + 1,
+                        sp["batch"]).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab, (sp["batch"], sp["buffer"]),
+                           dtype=np.int32)
+    prios = (np.arange(sp["batch"]) % sp["classes"]).astype(np.int32)
+    colo = mesh_lib.make_local_mesh(model_parallel=2, device=dev)
+    pre, dec = serve.make_disagg_meshes(cfg, device=dev)
+    pres, fdec = serve.make_fanin_meshes(cfg, sp["workers"], device=dev)
+    meshes = dict(colo=colo, pre=pre, dec=dec, pres=pres, fdec=fdec)
+    out["meshes"] = {k: (serve.mesh_ranks(v) if not isinstance(v, list)
+                         else [serve.mesh_ranks(m) for m in v])
+                     for k, v in meshes.items()}
+    total = sp["buffer"] + sp["new"]
+    gen_kw = dict(max_new=sp["new"], prompt_lens=lens)
+    serve.generate(cfg, params, prompts[:2, :64], max_new=2,
+                   prompt_lens=np.minimum(lens[:2], 64), mesh=colo)
+    for name, kw, ref_kw in serve_ranks_arms(meshes, sp, prios):
+        toks, run = serve_ranks_run(
+            f"serve/ranks {name}", lambda: serve.generate(
+                cfg, params, prompts, **gen_kw, **kw), dev)
+        run["tokens"] = toks
+        rows = sp["slots"] if "slots" in kw else sp["batch"]
+        run["stored"] = stored_bytes(cfg, kw, rows, total)
+        if "workers" in kw:
+            run["stats"] = dict(serve._generate_fanin.last_stats)
+        elif kw.get("stream") == "slots":
+            run["stats"] = dict(serve._generate_slots.last_stats)
+        out["arms"][name] = run
+        if rank == 0:
+            print(f"serve/ranks rank 0: {name} done in {run['wall_s']} s",
+                  flush=True)
+    if rank == 0:          # the one-process references, on this device
+        for name, kw in (("batch bf16", {}), ("batch int8", dict(
+                act_transport="int8")), ("slots bf16", dict(
+                    stream="slots", slots=sp["slots"])),
+                ("fanin", dict(workers=sp["workers"], slots=sp["slots"],
+                               evict="priority", priorities=prios))):
+            toks, run = serve_ranks_run(
+                f"serve/one-process {name}", lambda: serve.generate(
+                    cfg, params, prompts, **gen_kw, **kw), dev)
+            run["tokens"] = toks
+            if "workers" in kw:
+                run["stats"] = dict(serve._generate_fanin.last_stats)
+            out["ref"][name] = run
+    t0 = time.perf_counter()
+    rep = serve.disagg_decode_report(
+        cfg, sp["batch"], sp["buffer"], colo, ici_bw=sp["ici_bw"],
+        hbm_bw=sp["hbm_bw"], params=params, seed=seed)
+    out["report"] = json.loads(json.dumps(rep, default=str))
+    out["report_s"] = time.perf_counter() - t0
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # (d) expert-parallel MoE decode under the int8 transport
+    mcfg = ranks_config(plan, sp["moe_arch"], sp["moe_layers"])
+    mparams = model_tf.init_params(mcfg, seed=seed, device=dev,
+                                   draw_on_device=dev.type == "cuda")
+    mprompts = np.random.default_rng(seed + 1).integers(
+        0, mcfg.vocab, (sp["moe_batch"], sp["moe_len"]), dtype=np.int32)
+    a2a_ops.reset_calls()
+    toks, run = serve_ranks_run("serve/ranks moe ep int8", lambda: (
+        serve.generate(mcfg, mparams, mprompts, max_new=sp["moe_new"],
+                       mesh=colo, rules=shd.PRESETS["ep"],
+                       act_transport="int8")), dev)
+    run.update(tokens=toks, a2a_calls=a2a_ops.calls(),
+               stored=stored_bytes(mcfg, {"mesh": colo}, sp["moe_batch"],
+                                   sp["moe_len"] + sp["moe_new"]))
+    out["arms"]["moe ep int8"] = run
+    if rank == 0:
+        toks, run = serve_ranks_run("serve/one-process moe int8", lambda: (
+            serve.generate(mcfg, mparams, mprompts, max_new=sp["moe_new"],
+                           act_transport="int8")), dev)
+        out["ref"]["moe int8"] = dict(run, tokens=toks)
+    del mparams
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # (e) the smoke families in f32 on the (2, 2) mesh
+    out["families"] = {}
+    allow = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for arch in sp["families"]:
+            fcfg = smoke_config(arch)
+            fp = on(tree_map(lambda t: t.float(), model_tf.init_params(
+                fcfg, seed=seed, device="cpu")), dev)
+            fprompts = np.random.default_rng(seed + 1).integers(
+                0, fcfg.vocab, (sp["family_batch"], sp["family_len"]),
+                dtype=np.int32)
+            t0 = time.perf_counter()
+            ftoks = serve.generate(fcfg, fp, fprompts,
+                                   max_new=sp["family_new"], mesh=colo)
+            out["families"][arch] = {"tokens": ftoks,
+                                     "wall_s": time.perf_counter() - t0}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = allow
+    out["launches"] = {**dict(kern.LAUNCHES), **sweep_launches()}
+    return out
+
+
+def serve_ranks_family_refs(sp: dict, seed: int) -> dict:
+    """Each smoke family's one-process tokens on the CPU, with every
+    step's logits for the first difference's margin."""
+    refs = {}
+    cpu = torch.device("cpu")
+    for arch in sp["families"]:
+        fcfg = smoke_config(arch)
+        fp = tree_map(lambda t: t.float(), model_tf.init_params(
+            fcfg, seed=seed, device=cpu))
+        fprompts = np.random.default_rng(seed + 1).integers(
+            0, fcfg.vocab, (sp["family_batch"], sp["family_len"]),
+            dtype=np.int32)
+        with ServeProbe(arch, keep_all=True) as probe:
+            toks = serve.generate(fcfg, fp, fprompts,
+                                  max_new=sp["family_new"])
+        refs[arch] = (toks, probe.prefill_logits, probe.decode_logits)
+    return refs
+
+
+def per_rank_runs(res: list, arm: str) -> list:
+    return [r["serve"]["arms"][arm] for r in res]
+
+
+def per_rank(res: list, arm: str, key: str) -> list:
+    return [r[key] for r in per_rank_runs(res, arm)]
+
+
+def report_serve_ranks(res: list, plan: dict, args, smi: str) -> int:
+    """Phase 13's lines and gates from the ranks' results; returns the
+    kernel launches on the ``serve@4`` path (summed over the ranks)."""
+    t_phase = time.perf_counter()
+    sp = plan["serve"]
+    s0 = res[0]["serve"]
+    bar = ROW_REL_BAR[torch.bfloat16]
+    print(f"serve/ranks ({smi}): {RANKS_W} ranks of phase 12's group, "
+          f"meshes {json.dumps(s0['meshes'])}; reduced: " + json.dumps({
+              f"{sp['arch']} depth (40)": sp["layers"],
+              f"{sp['arch']} new tokens (phase 11: {SERVE_NEW})": sp["new"],
+              f"{sp['moe_arch']} depth (48)": sp["moe_layers"],
+              f"{sp['moe_arch']} requests": [sp["moe_batch"],
+                                             sp["moe_len"]]}))
+    ref = s0["ref"]
+    for name, run0 in s0["arms"].items():
+        runs = per_rank_runs(res, name)
+        print(f"serve/ranks {name}: end to end s per rank "
+              f"{[r['wall_s'] for r in runs]}; time to the first token s "
+              f"per rank {[r['ttft_s'] for r in runs]}; decode steps "
+              f"{[r['n_decode'] for r in runs]}, median ms per rank "
+              f"{[r['decode_ms'] for r in runs]}; prefill median ms per "
+              f"rank {[r['prefill_ms'] for r in runs]}; peak GiB per rank "
+              f"{[r['peak_gib'] for r in runs]}; cache bytes per rank as "
+              f"stored {[r['stored'] for r in runs]}; wire bytes by kind "
+              f"per rank {json.dumps([r['wire'] for r in runs])}"
+              + (f"; stats {json.dumps(run0['stats'])}"
+                 if "stats" in run0 else ""))
+        vocab = ranks_config(plan, sp["moe_arch"] if name.startswith("moe")
+                             else sp["arch"]).vocab
+        assert all(r["finite"] for r in runs), name
+        assert all(np.array_equal(r["tokens"], run0["tokens"])
+                   for r in runs), name
+        assert ((run0["tokens"] >= 0) & (run0["tokens"] < vocab)).all()
+    # the first prefill's and the first decode step's logits against one
+    # process on the same weights. A decode row is held where both runs
+    # fed it the same token: at full width the random weights' logits
+    # are nearly flat, so a prefill rounded in another order may pick
+    # another first token (near-tie), and that row's next logits then
+    # answer another input; such a row is held by the one-process
+    # prefill's top-2 margin instead, under the bar
+    arms = s0["arms"]
+
+    def first(name, key):
+        return next(r["serve"]["arms"][name][key] for r in res
+                    if r["serve"]["arms"][name][key] is not None)
+
+    # (one-process reference, decode bar, prefill bar): under the int8
+    # transport a last-bit difference in a gathered activation can cross
+    # an int8 rounding boundary (one step is 1/127 of its block's largest
+    # value), so a prefill that runs that gather in every layer is held
+    # to the reference's int8 bar (an NVIDIA H100 80GB HBM3 at 700 W read
+    # 0.0205 colocated)
+    i8 = STORAGE_BARS["int8"]
+    gates = {
+        "colocated bf16": ("batch bf16", bar, bar),
+        "colocated int8": ("batch int8", bar, i8),
+        "disagg bf16xbf16": ("batch bf16", bar, bar),
+        "disagg int8xbf16": ("batch bf16", bar, bar),
+        "disagg int8xint8": ("batch bf16", i8, bar),
+        "disagg bf16xf8": ("batch bf16", STORAGE_BARS["f8"], bar),
+        "slots bf16": ("slots bf16", bar, bar),
+        "fanin": ("fanin", bar, bar),
+        "moe ep int8": ("moe int8", bar, i8),
+    }
+    errs = {}
+    for name, (rname, b, pre_bar) in gates.items():
+        want = ref[rname]
+        pre_err = serve_logits_err(torch.from_numpy(first(name,
+                                                          "first_prefill")),
+                                   torch.from_numpy(want["first_prefill"]))
+        same = (first(name, "first_decode_tokens")
+                == want["first_decode_tokens"]).all(axis=-1)
+        got_d = torch.from_numpy(first(name, "first_decode"))
+        want_d = torch.from_numpy(want["first_decode"])
+        dec_err = serve_logits_err(got_d[same], want_d[same]) \
+            if same.any() else float("nan")
+        margins = []
+        if not same.all() and name.split()[0] in ("colocated", "disagg",
+                                                  "moe"):
+            pl = torch.from_numpy(want["first_prefill"])
+            scale = max(1.0, float(pl.abs().max()))
+            margins = [top2_margin(pl[r]) / scale
+                       for r in np.nonzero(~same)[0]]
+        errs[name] = {"prefill": pre_err, "decode": dec_err,
+                      "rows held": int(same.sum()), "rows": int(same.size),
+                      "tie margins": margins}
+        assert pre_err <= pre_bar, (name, pre_err)
+        assert same.any() and dec_err <= b, (name, errs[name], b)
+        assert all(m <= bar for m in margins), (name, margins)
+        assert same.all() or margins or \
+            name.split()[0] in ("slots", "fanin"), (name, errs[name])
+    print(f"serve/ranks first prefill's and first decode step's logits "
+          f"against one process on the same weights, max |diff| over the "
+          f"scale (bars: {bar}, prefill under the int8 transport "
+          f"{STORAGE_BARS['int8']}; decode under int8 storage "
+          f"{STORAGE_BARS['int8']}, f8 {STORAGE_BARS['f8']}, against one "
+          f"process's bf16 storage; a decode row held where both fed it the "
+          f"same token, else the one-process prefill's top-2 margin over "
+          f"the scale under {bar}): {json.dumps(errs)}; one-process runs: "
+          + json.dumps({
+              k: {"wall_s": v["wall_s"], "ttft_s": v["ttft_s"],
+                  "decode_ms": v["decode_ms"], "peak_gib": v["peak_gib"]}
+              for k, v in ref.items()}))
+    agree = {n: float((a["tokens"] == ref["batch bf16"]["tokens"]).all(
+        axis=1).mean()) for n, a in arms.items() if not n.startswith("moe")}
+    print(f"serve/ranks rows whose tokens equal one process's batch bf16 "
+          f"(printed): {json.dumps(agree)}")
+    # the wire: int8 below bf16 over 1.5
+    for r in res:
+        a = r["serve"]["arms"]
+        b16 = a["colocated bf16"]["wire"].get("act_gather_bf16", 0)
+        i8 = a["colocated int8"]["wire"].get("act_gather_int8", 0)
+        assert 0 < i8 <= b16 / 1.5, (b16, i8)
+    pre = s0["meshes"]["pre"]
+    mv = {k: sum(res[p]["serve"]["arms"][f"disagg {k}xbf16"]["wire"].get(
+        f"cache_move_{k}", 0) for p in pre) for k in ("bf16", "int8")}
+    gb16 = sum(r["serve"]["arms"]["colocated bf16"]["wire"].get(
+        "act_gather_bf16", 0) for r in res)
+    gi8 = sum(r["serve"]["arms"]["colocated int8"]["wire"].get(
+        "act_gather_int8", 0) for r in res)
+    print(f"serve/ranks wire: colocated act_gather bf16 {gb16} bytes, int8 "
+          f"{gi8} ({gb16 / gi8}x); disaggregated handoff cache_move bf16 "
+          f"{mv['bf16']} bytes, int8 {mv['int8']} ({mv['bf16'] / mv['int8']}"
+          f"x); bar 1.5x each")
+    assert 0 < mv["int8"] <= mv["bf16"] / 1.5, mv
+    # (c) the fan-in's counts against one process
+    keys = ("admissions", "evictions", "requeues", "decode_steps")
+    got = {k: arms["fanin"]["stats"][k] for k in keys}
+    want = {k: ref["fanin"]["stats"][k] for k in keys}
+    print(f"serve/ranks fanin counts across the fan-in meshes {got} "
+          f"against one process {want}; tokens equal one process's "
+          f"{bool(np.array_equal(arms['fanin']['tokens'], ref['fanin']['tokens']))}")
+    assert got == want, (got, want)
+    # (d)
+    moe = arms["moe ep int8"]
+    n_layers = ranks_config(plan, sp["moe_arch"], sp["moe_layers"]).n_layers
+    print(f"serve/ranks moe ep int8: expert_a2a calls per rank "
+          f"{per_rank(res, 'moe ep int8', 'a2a_calls')} ({n_layers} layers x "
+          f"{sp['moe_new']} decode steps), its wire "
+          f"{[r['serve']['arms']['moe ep int8']['wire'].get('expert_a2a_int8', 0) for r in res]}"
+          f" bytes per rank; tokens equal one process's "
+          f"{bool(np.array_equal(moe['tokens'], ref['moe int8']['tokens']))}")
+    assert all(n == n_layers * sp["moe_new"]
+               for n in per_rank(res, "moe ep int8", "a2a_calls"))
+    # (e)
+    refs = serve_ranks_family_refs(sp, args.seed)
+    for arch, (want_t, pre_l, dec_l) in refs.items():
+        fam = s0["families"][arch]
+        assert all(np.array_equal(r["serve"]["families"][arch]["tokens"],
+                                  fam["tokens"]) for r in res), arch
+        diff = first_difference(fam["tokens"], want_t)
+        if diff is None:
+            print(f"serve/ranks {arch} smoke f32 on the (2, 2) mesh, card "
+                  f"against one CPU process: greedy tokens equal "
+                  f"({fam['tokens'].size} tokens, {fam['wall_s']} s)")
+            continue
+        r, t = diff
+        lg = pre_l[0] if t == 0 else dec_l[t - 1]
+        margin = top2_margin(lg[r]) / max(1.0, float(lg.abs().max()))
+        print(f"serve/ranks {arch} smoke f32 on the (2, 2) mesh: tokens "
+              f"differ first at row {r} step {t}; the CPU's top-2 margin "
+              f"there {margin} of scale (bar {SERVE_F32_TOL})")
+        assert margin <= SERVE_F32_TOL, (arch, margin)
+    # the reports
+    rep = s0["report"]
+    print(f"serve/ranks disagg_decode_report {sp['arch']} batch "
+          f"{sp['batch']} x {sp['buffer']} on the colocated "
+          f"(2, 2) mesh ({s0['report_s']} s, priced at ici_bw "
+          f"{sp['ici_bw']}, hbm_bw {sp['hbm_bw']}): {json.dumps(rep)}")
+    assert set(rep["cells"]) == {f"{t}x{s}" for t in ("bf16", "int8")
+                                 for s in ("bf16", "int8", "f8")}
+    fcfg = ranks_config(plan, sp["arch"], sp["layers"])
+    fan = serve.fanin_report(
+        fcfg, sp["batch"], sp["buffer"], workers=sp["workers"],
+        slots=sp["slots"], classes=sp["classes"], evict="priority",
+        max_new=sp["new"],
+        decode_step_s=statistics.median(
+            [r["decode_ms"] for r in per_rank_runs(res, "fanin")
+             if r["n_decode"]]) / 1e3,
+        transfer_s=statistics.median(
+            [r["prefill_ms"] for r in per_rank_runs(res, "fanin")
+             if not math.isnan(r["prefill_ms"])]) / 1e3)
+    print(f"serve/ranks fanin_report for the same workload (decode step and "
+          f"prefill priced at the fanin arm's medians): {json.dumps(fan)}")
+    launches = {}
+    for r in res:
+        for k, n in r["serve"]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    print(f"serve/ranks: launches summed over the ranks "
+          f"{json.dumps(launches)} (no kernel on the path); report wall "
+          f"{time.perf_counter() - t_phase} s")
+    assert not any(launches.values()), launches
+    return sum(launches.values())
 
 
 def main() -> int:
@@ -3208,6 +3665,12 @@ def main() -> int:
     reduced["train/ranks launcher (60 steps, cycle/25, ckpt/20)"] = \
         RANKS_PLAN["launch_argv"] + [
             f"ckpt every {RANKS_PLAN['launch_ckpt_every']}"]
+    reduced["serve/ranks granite-3-8b depth (40)"] = \
+        SERVE_RANKS_PLAN["layers"]
+    reduced["serve/ranks granite-3-8b new tokens (phase 11: 64)"] = \
+        SERVE_RANKS_PLAN["new"]
+    reduced["serve/ranks qwen3-moe-30b-a3b depth (48)"] = \
+        SERVE_RANKS_PLAN["moe_layers"]
     print(f"reduced: {json.dumps(reduced)}")
     tuned_dir = tempfile.mkdtemp(prefix="chip_smoke_tuned_")
     os.environ["REPRO_TORCH_TUNED_DIR"] = tuned_dir
@@ -3249,11 +3712,14 @@ def main() -> int:
         phase_serve(args, dev, smi)
         for k in kernels:
             k.setdefault("launches_by_path", {})["serve"] = 0
-        ranks_chunks = phase_ranks(args, dev, smi)
+        ranks_chunks, serve4 = phase_ranks(
+            args, dev, smi, dict(RANKS_PLAN, serve=SERVE_RANKS_PLAN))
         for k in kernels:
             if k["name"] == "compact_chunks":
                 k["launches_by_path"]["train@4"] = ranks_chunks
                 k["launches"] += ranks_chunks
+            k["launches_by_path"]["serve@4"] = 0
+        assert serve4 == 0, serve4
     finally:
         shutil.rmtree(tuned_dir, ignore_errors=True)
     print(json.dumps({"kernels": kernels}))

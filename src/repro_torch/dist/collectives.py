@@ -46,7 +46,6 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.dist import sharding
-from repro_torch.dist.sharding import constrain
 
 # XLA's rewrite of ``/ 127.0``: a product with the reciprocal in f32
 _INV_127 = float(np.float32(1.0 / 127.0))
@@ -58,6 +57,9 @@ _INV_127 = float(np.float32(1.0 / 127.0))
 
 # bytes this process handed to each kind of collective since the last reset
 _WIRE: Dict[str, int] = collections.Counter()
+# the same bytes in bf16 equivalents (f32 payloads halved), and the s8 part
+_WIRE_EQ: Dict[str, int] = collections.Counter()
+_WIRE_S8: Dict[str, int] = collections.Counter()
 
 # The functional collectives (the ops DTensor calls) that crash over gloo
 # on CUDA tensors: on the card's torch 2.11 ``funcol.all_gather_tensor``
@@ -73,6 +75,8 @@ _staging: list = []
 
 def reset_wire_bytes() -> None:
     _WIRE.clear()
+    _WIRE_EQ.clear()
+    _WIRE_S8.clear()
 
 
 def wire_bytes() -> Dict[str, int]:
@@ -80,11 +84,29 @@ def wire_bytes() -> Dict[str, int]:
     return dict(_WIRE)
 
 
-def _call(kind: str, out: torch.Tensor, inp: torch.Tensor, group) -> None:
+def wire_detail() -> Dict[str, Dict[str, int]]:
+    """Per kind: ``bytes`` (as :func:`wire_bytes`), ``bytes_bf16eq`` (f32
+    payloads counted at half their bytes, as the reference's HLO byte
+    count prices them) and ``bytes_s8`` (the int8 part)."""
+    return {k: {"bytes": _WIRE[k], "bytes_bf16eq": _WIRE_EQ[k],
+                "bytes_s8": _WIRE_S8[k]} for k in _WIRE}
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    n = t.numel() * t.element_size()
+    _WIRE[kind] += n
+    _WIRE_EQ[kind] += n // 2 if t.dtype == torch.float32 else n
+    if t.dtype == torch.int8:
+        _WIRE_S8[kind] += n
+
+
+def _call(kind: str, out: torch.Tensor, inp: torch.Tensor, group,
+          src: Optional[int] = None) -> None:
     if kind == "all_reduce":
         dist.all_reduce(out, group=group)
-    elif kind == "broadcast":                   # from the group's rank 0
-        src = 0 if group is None else dist.get_global_rank(group, 0)
+    elif kind == "broadcast":       # from src, by default the group's rank 0
+        if src is None:
+            src = 0 if group is None else dist.get_global_rank(group, 0)
         dist.broadcast(out, src, group=group)
     elif kind == "all_to_all_single":
         dist.all_to_all_single(out, inp, group=group)
@@ -98,7 +120,7 @@ def _collective(kind: str, out: torch.Tensor, inp: torch.Tensor,
                 group) -> None:
     """One collective, its input's bytes counted under ``kind``. For
     ``all_reduce`` and ``broadcast`` ``out`` is ``inp``, in place."""
-    _WIRE[kind] += inp.numel() * inp.element_size()
+    _count(kind, inp)
     _call(kind, out, inp, group)
 
 
@@ -147,15 +169,19 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return x
 
 
-def broadcast(x: torch.Tensor, group=None) -> torch.Tensor:
-    """``x`` from the group's rank 0 to every rank, in place (counted). A
-    host tensor crosses an NCCL group through the card."""
+def broadcast(x: torch.Tensor, group=None, src: Optional[int] = None
+              ) -> torch.Tensor:
+    """``x`` from global rank ``src`` (by default the group's rank 0) to
+    every rank of the group, in place (counted). A host tensor crosses an
+    NCCL group through the card."""
     if x.device.type == "cpu" and dist.get_backend(group) == "nccl":
         on_card = x.to(torch.device("cuda", torch.cuda.current_device()))
-        _collective("broadcast", on_card, on_card, group)
+        _count("broadcast", on_card)
+        _call("broadcast", on_card, on_card, group, src)
         x.copy_(on_card)
     else:
-        _collective("broadcast", x, x, group)
+        _count("broadcast", x)
+        _call("broadcast", x, x, group, src)
     return x
 
 
@@ -173,6 +199,34 @@ def axis_group(axis_name: str, mesh=None):
                              f"{axis_name!r} of size > 1")
         return None
     return mesh.get_group(axis_name)
+
+
+def exchange(kind: str, sends, recvs) -> list:
+    """Point-to-point transfers between ranks of the world group, all in
+    flight together: ``sends`` is a list of ``(tensor, dst)``, ``recvs``
+    a list of ``(shape, dtype, device, src)``; returns the received
+    tensors in ``recvs``' order. The bytes sent are counted under
+    ``kind``. Over gloo a card's tensor crosses through a host copy (gloo
+    moves host memory)."""
+    host = dist.get_backend() == "gloo"
+    ops, back = [], []
+    for t, dst in sends:
+        _count(kind, t)
+        t = t.contiguous()
+        if host and t.device.type != "cpu":
+            t = t.cpu()
+        ops.append(dist.P2POp(dist.isend, t.view(torch.uint8)
+                              if t.dtype == F8_DTYPE else t, dst))
+    for shape, dtype, device, src in recvs:
+        dev = torch.device("cpu") if host else torch.device(device)
+        buf = torch.empty(shape, dtype=torch.uint8 if dtype == F8_DTYPE
+                          else dtype, device=dev)
+        ops.append(dist.P2POp(dist.irecv, buf, src))
+        back.append((buf, dtype, device))
+    if ops:
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+    return [buf.view(dtype).to(device) for buf, dtype, device in back]
 
 
 def quantize_int8(x: torch.Tensor, block: int = 256
@@ -346,6 +400,120 @@ def compressed_psum(x: torch.Tensor, axis_name: Optional[str] = None,
 
 
 # ---------------------------------------------------------------------------
+# reshards on a DeviceMesh, counted; local shards and their offsets
+# ---------------------------------------------------------------------------
+
+def _moves_data(old, new) -> bool:
+    """Whether going from placements ``old`` to ``new`` hands data to
+    another rank: every change from a shard or a pending sum does, a
+    replicated dim becoming a shard is a local slice."""
+    return any(a != b and not a.is_replicate() for a, b in zip(old, new))
+
+
+def redistribute(kind: str, x, place):
+    """DTensor ``x`` laid out by ``place``; the local bytes it hands over,
+    if any, counted under ``kind``."""
+    place = tuple(place)
+    if tuple(x.placements) == place:
+        return x
+    if _moves_data(x.placements, place):
+        _count(kind, x.to_local())
+    return x.redistribute(x.device_mesh, place)
+
+
+def target_placements(shape, logical_axes):
+    """The placements the active ``axis_rules`` context resolves for an
+    array of ``shape`` with ``logical_axes``."""
+    mesh, rules = sharding.current_context()
+    return sharding.placements(
+        sharding.resolve_spec(tuple(shape), tuple(logical_axes), mesh, rules),
+        mesh)
+
+
+def reshard(kind: str, x, *logical_axes: Optional[str]):
+    """``constrain`` with its wire counted under ``kind``: a DTensor inside
+    a context redistributed to its logical axes' layout; anything else
+    unchanged."""
+    if sharding.current_context() is None or not sharding.is_dtensor(x):
+        return x
+    return redistribute(kind, x, target_placements(x.shape, logical_axes))
+
+
+def without_dims(place, dims, ndim: int) -> tuple:
+    """``place`` with every shard of a tensor dim in ``dims`` (and every
+    pending sum) replaced by ``Replicate``."""
+    from torch.distributed.tensor import Replicate
+
+    dims = {d % ndim for d in dims}
+    return tuple(Replicate() if p.is_partial()
+                 or (p.is_shard() and p.dim % ndim in dims) else p
+                 for p in place)
+
+
+def local_offsets(x) -> Tuple[int, ...]:
+    """Global index of the first element of this rank's shard of DTensor
+    ``x``, per dim (shards of one dim nest major to minor in mesh-dim
+    order, as DTensor lays them out; every shard is even)."""
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    off = [0] * x.ndim
+    size = list(x.shape)
+    for m, p in enumerate(x.placements):
+        if p.is_shard():
+            d = p.dim % x.ndim
+            size[d] //= mesh.size(m)
+            off[d] += coord[m] * size[d]
+    return tuple(off)
+
+
+def from_local(local: torch.Tensor, like=None, place=None, shape=None,
+               mesh=None):
+    """``local`` as the shard of a DTensor on ``like``'s mesh (or
+    ``mesh``), laid out by ``place`` (``like``'s placements by
+    default)."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = like.device_mesh if mesh is None else mesh
+    place = tuple(like.placements if place is None else place)
+    if shape is None:
+        shape = list(local.shape)
+        for m, p in enumerate(place):
+            if p.is_shard():
+                shape[p.dim % local.ndim] *= mesh.size(m)
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    return DTensor.from_local(local, mesh, place,
+                              shape=torch.Size(shape), stride=tuple(stride))
+
+
+def as_dtensor(x, like):
+    """A plain tensor as a DTensor replicated on ``like``'s mesh (every
+    rank holds the same values); a DTensor as it is."""
+    if sharding.is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = like.device_mesh
+    return DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim)
+
+
+def on_local(fn, x, dims, *others, kind: str = "reshard"):
+    """``fn`` applied to this rank's shards with the dims in ``dims``
+    whole: DTensor ``x`` gathered along them first (counted under
+    ``kind``), each DTensor of ``others`` laid out as ``x`` then is, plain
+    ones passed as they are; the result laid out as ``x``'s shard was.
+    ``fn`` may change the sizes of ``dims`` only. Without a DTensor ``x``
+    every operand goes through ``fn`` as it is."""
+    if not sharding.is_dtensor(x):
+        return fn(x, *others)
+    x = redistribute(kind, x, without_dims(x.placements, dims, x.ndim))
+    rest = [redistribute(kind, o, x.placements).to_local()
+            if sharding.is_dtensor(o) else o for o in others]
+    return from_local(fn(x.to_local(), *rest), x)
+
+
+# ---------------------------------------------------------------------------
 # serve activation transport: quantized all-gathers, no error feedback
 # ---------------------------------------------------------------------------
 
@@ -432,15 +600,35 @@ def update_slice(buf: torch.Tensor, upd: torch.Tensor, starts) -> torch.Tensor:
     into a copy of ``buf`` at ``starts``, each start clamped to
     ``[0, buf.shape[i] - upd.shape[i]]`` as XLA clamps it (a negative
     start counting from the end first, as JAX reads it), so an update
-    always lands whole."""
-    out = buf.clone()
-    idx = []
+    always lands whole.
+
+    A DTensor ``buf`` keeps its layout: each rank writes the part of the
+    update that falls in its own shard, read from ``upd`` laid out
+    whole."""
+    lo = []
     for i, s in enumerate(starts):
         s = int(s) + (buf.shape[i] if int(s) < 0 else 0)
-        s = min(max(s, 0), buf.shape[i] - upd.shape[i])
-        idx.append(slice(s, s + upd.shape[i]))
-    out[tuple(idx)] = upd.to(buf.dtype)
-    return out
+        lo.append(min(max(s, 0), buf.shape[i] - upd.shape[i]))
+    if not sharding.is_dtensor(buf):
+        out = buf.clone()
+        out[tuple(slice(s, s + n) for s, n in zip(lo, upd.shape))] = \
+            upd.to(buf.dtype)
+        return out
+    if sharding.is_dtensor(upd):
+        upd = redistribute("reshard", upd, without_dims(
+            upd.placements, range(upd.ndim), upd.ndim))
+        upd = upd.to_local()
+    local = buf.to_local()
+    out = local.clone()
+    dst, src = [], []
+    for s, n, o, m in zip(lo, upd.shape, local_offsets(buf), local.shape):
+        a, b = max(s, o), min(s + n, o + m)
+        if a >= b:
+            return from_local(out, buf)        # nothing of it lands here
+        dst.append(slice(a - o, b - o))
+        src.append(slice(a - s, b - s))
+    _bytes(out)[tuple(dst)] = _bytes(upd.to(buf.dtype))[tuple(src)]
+    return from_local(out, buf)
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
@@ -450,15 +638,32 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
 
 
 def index_select(x: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
-    """``torch.index_select`` for every dtype, f8 included."""
-    return torch.index_select(_bytes(x), dim, idx).view(x.dtype)
+    """``torch.index_select`` for every dtype, f8 included; a DTensor
+    ``x`` is read with ``dim`` whole and keeps its other dims' layout."""
+    if sharding.is_dtensor(idx):
+        idx = idx.full_tensor()
+    return on_local(
+        lambda t: torch.index_select(_bytes(t), dim, idx).view(t.dtype),
+        x, (dim,))
 
 
 def index_copy(x: torch.Tensor, dim: int, idx: torch.Tensor,
                src: torch.Tensor) -> torch.Tensor:
     """``x.index_copy(dim, idx, src)`` (a new tensor) for every dtype,
-    ``src`` cast to ``x``'s dtype first."""
-    return _bytes(x).index_copy(dim, idx, _bytes(src.to(x.dtype))).view(x.dtype)
+    ``src`` cast to ``x``'s dtype first. A DTensor ``x`` is written with
+    ``dim`` whole, ``src`` laid out as ``x``, and keeps its layout."""
+    if sharding.is_dtensor(idx):
+        idx = idx.full_tensor()
+    if not sharding.is_dtensor(x):
+        if sharding.is_dtensor(src):
+            src = src.full_tensor()
+        return _bytes(x).index_copy(dim, idx,
+                                    _bytes(src.to(x.dtype))).view(x.dtype)
+    x = redistribute("reshard", x, without_dims(x.placements, (dim,), x.ndim))
+    src = redistribute("reshard", as_dtensor(src, x), x.placements)
+    out = _bytes(x.to_local()).index_copy(
+        dim, idx, _bytes(src.to_local().to(x.dtype))).view(x.dtype)
+    return from_local(out, x)
 
 
 def _row_starts(ndim: int, axis: int, slot) -> list:
@@ -467,24 +672,77 @@ def _row_starts(ndim: int, axis: int, slot) -> list:
     return starts
 
 
+def _int8_reshard(kind: str, x: torch.Tensor, logical_axes, block: int
+                  ) -> torch.Tensor:
+    """``x`` moved to the layout of ``logical_axes`` as blockwise int8
+    along its trailing axis: quantized on each rank's shard, the s8 values
+    and the f32 scales redistributed (their bytes counted under ``kind``),
+    dequantized on arrival, in ``x``'s dtype.
+
+    Outside a context, or for a plain tensor, the one-device round trip.
+    A shard of the trailing axis is quantized where it lies when it holds
+    whole blocks, and gathered first otherwise, so the blocks, and the
+    values, are the one-device round trip's in every layout."""
+    if sharding.current_context() is None or not sharding.is_dtensor(x):
+        q, scales = quantize_int8_lastdim(x, block)
+        return dequantize_int8_lastdim(q, scales).to(x.dtype)
+    nd = x.ndim
+    b, nb = lastdim_blocks(x.shape[-1], block)
+    src = without_dims(x.placements, (), nd)          # pending sums reduced
+    x = redistribute(kind, x, src)
+    if x.to_local().shape[-1] % b:
+        x = redistribute(kind, x, without_dims(src, (nd - 1,), nd))
+    local = x.to_local()
+    q_l, s_l = _quantize_blocks(local.float().reshape(
+        tuple(local.shape[:-1]) + (local.shape[-1] // b, b)))
+    q = from_local(q_l.reshape(local.shape), x)
+    scales = from_local(s_l, x)
+    target = target_placements(x.shape, logical_axes)
+    q = redistribute(kind, q, without_dims(target, (nd - 1,), nd))
+    scales = redistribute(kind, scales, target_placements(
+        scales.shape, tuple(logical_axes[:-1]) + (None,)))
+    out = dequantize_int8_lastdim(q.to_local(), scales.to_local())
+    out = from_local(out.to(x.dtype), q)
+    return redistribute(kind, out, target)
+
+
+def _movedim(x, src: int, dst: int):
+    """``torch.movedim`` of one axis, a DTensor's shards moved with it."""
+    if not sharding.is_dtensor(x):
+        return torch.movedim(x, src, dst)
+    from torch.distributed.tensor import Shard
+
+    order = list(range(x.ndim))
+    order.insert(dst % x.ndim, order.pop(src % x.ndim))
+    place = tuple(Shard(order.index(p.dim % x.ndim)) if p.is_shard() else p
+                  for p in x.placements)
+    return from_local(torch.movedim(x.to_local(), src, dst), x, place,
+                      shape=[x.shape[i] for i in order])
+
+
 def stream_int8(x: torch.Tensor, *logical_axes: Optional[str],
                 seq_axis: int, block: int = ACT_BLOCK) -> torch.Tensor:
-    """A cache leaf through the int8 cache stream: seq-blockwise s8 chunks
-    and f32 scales, dequantized on arrival, in ``x``'s dtype. On one
-    device there is no reshard, so only the round trip's rounding is
-    real; ``logical_axes`` names the target layout for the multi-GPU
-    slice."""
-    q, scales = quantize_int8_seqaxis(x, seq_axis, block)
-    return dequantize_int8_seqaxis(q, scales, seq_axis).to(x.dtype)
+    """A cache leaf moved to the layout named by ``logical_axes`` as
+    seq-blockwise s8 chunks and f32 scales (counted as
+    ``cache_stream_int8``), dequantized on arrival, in ``x``'s dtype.
+    ``logical_axes`` names the target (decode-side) layout in the leaf's
+    own axis order; ``seq_axis`` is the sequence axis. On one device
+    there is no reshard, so only the round trip's rounding is real."""
+    axes = list(logical_axes)
+    axes.append(axes.pop(seq_axis))          # seq-last, matching q's layout
+    moved = _int8_reshard("cache_stream_int8", _movedim(x, seq_axis, -1),
+                          axes, block)
+    return _movedim(moved, -1, seq_axis).to(x.dtype)
 
 
 def stream_slot_int8(cache_leaf: torch.Tensor, new_slice: torch.Tensor, slot,
                      *logical_axes: Optional[str], seq_axis: int,
                      batch_axis: int = 1, block: int = ACT_BLOCK
                      ) -> torch.Tensor:
-    """One request's cache slice through :func:`stream_int8`, written into
-    row ``slot`` along ``batch_axis`` of the running decode cache leaf (a
-    new tensor; the slot clamped as XLA clamps it)."""
+    """One request's cache slice through :func:`stream_int8` to the slot
+    row's layout (``logical_axes``), written into row ``slot`` along
+    ``batch_axis`` of the running decode cache leaf (a new tensor; the
+    slot clamped as XLA clamps it)."""
     arrived = stream_int8(new_slice, *logical_axes, seq_axis=seq_axis,
                           block=block).to(cache_leaf.dtype)
     return update_slice(cache_leaf, arrived,
@@ -496,10 +754,11 @@ def stream_row_int8(cache_leaf: torch.Tensor, new_row: torch.Tensor, slot,
                     block: int = ACT_BLOCK) -> torch.Tensor:
     """Per-row variant for state leaves with no sequence axis (SSM conv
     and state, mLSTM C/n/m, sLSTM h/c/n/m): the row quantized blockwise
-    along its trailing feature axis, dequantized, and written into row
-    ``slot`` along ``batch_axis``."""
-    q, scales = quantize_int8_lastdim(new_row, block)
-    arrived = dequantize_int8_lastdim(q, scales).to(cache_leaf.dtype)
+    along its trailing feature axis, moved to ``logical_axes``' layout as
+    s8 and scales, dequantized, and written into row ``slot`` along
+    ``batch_axis``."""
+    arrived = _int8_reshard("cache_stream_int8", new_row, logical_axes,
+                            block).to(cache_leaf.dtype)
     return update_slice(cache_leaf, arrived,
                         _row_starts(cache_leaf.ndim, batch_axis, slot))
 
@@ -557,16 +816,21 @@ def act_transport_scope(mode: Optional[str]) -> _trace_scope_ctx:
 
 def all_gather_int8(x: torch.Tensor, *logical_axes: Optional[str],
                     block: int = ACT_BLOCK) -> torch.Tensor:
-    """``x`` through the int8 activation gather: quantized along the
-    trailing axis, dequantized, in ``x``'s dtype. On one device the
-    gather moves nothing, but the round trip's rounding is real, as it is
-    in the reference on a (1, 1) mesh. An int8- or f8-resident cache
-    passes through unchanged: it is as small as the transport could make
-    it."""
+    """``x`` resharded to the layout named by ``logical_axes`` moving
+    blockwise int8 and per-block f32 scales instead of the raw payload:
+    quantized on each rank's shard along the trailing axis (blocks never
+    cross a shard of the leading axes), the s8 values and scales
+    redistributed (counted as ``act_gather_int8``), dequantized on the
+    gathered side, in ``x``'s dtype. On one device the gather moves
+    nothing, but the round trip's rounding is real, as it is in the
+    reference on a (1, 1) mesh.
+
+    An int8- or f8-resident cache passes through as a plain reshard
+    (counted as ``act_gather_bf16``): it is as small as the transport
+    could make it."""
     if x.dtype in (torch.int8, F8_DTYPE):
-        return constrain(x, *logical_axes)
-    q, scales = quantize_int8_lastdim(x, block)
-    return dequantize_int8_lastdim(q, scales).to(x.dtype)
+        return reshard("act_gather_bf16", x, *logical_axes)
+    return _int8_reshard("act_gather_int8", x, logical_axes, block)
 
 
 _kv_ctx = _TraceScope("kv_storage", KV_STORAGES, "bf16")
@@ -588,12 +852,12 @@ def kv_storage_scope(mode: Optional[str]) -> _trace_scope_ctx:
 
 def act_gather(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     """The serve activation all-gather boundary: the identity outside any
-    :func:`act_transport_scope` (training), a plain ``constrain`` under
-    ``"bf16"``, and :func:`all_gather_int8`'s round trip under
-    ``"int8"``."""
+    :func:`act_transport_scope` (training), a plain reshard under
+    ``"bf16"`` (counted as ``act_gather_bf16``), and
+    :func:`all_gather_int8` under ``"int8"``."""
     mode = current_act_transport()
     if mode is None:
         return x
     if mode == "int8":
         return all_gather_int8(x, *logical_axes)
-    return constrain(x, *logical_axes)
+    return reshard("act_gather_bf16", x, *logical_axes)

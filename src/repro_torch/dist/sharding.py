@@ -172,10 +172,13 @@ def placements(spec: Spec, mesh) -> tuple:
     ``Shard(d)`` on each mesh dim that shards tensor dim ``d``, else
     ``Replicate()``. Two mesh axes on one dim give ``Shard(d)`` twice,
     which DTensor lays out major to minor in mesh-dim order; a spec entry
-    naming them in another order has no such layout and raises."""
+    naming them in another order has no such layout and raises. A mesh
+    dim of size 1 splits nothing and is ``Replicate()``: DTensor refuses
+    to reshape a dim it holds as sharded, even one split in one."""
     from torch.distributed.tensor import Replicate, Shard
 
-    names = list(axis_sizes(mesh))
+    sizes = axis_sizes(mesh)
+    names = list(sizes)
     out = [Replicate() for _ in names]
     for d, entry in enumerate(spec):
         axes = entry if isinstance(entry, tuple) else (entry,)
@@ -185,7 +188,8 @@ def placements(spec: Spec, mesh) -> tuple:
             raise ValueError(f"spec entry {entry!r} shards dim {d} over "
                              f"mesh axes out of the mesh's order {names}")
         for m in order:
-            out[m] = Shard(d)
+            if sizes[names[m]] > 1:
+                out[m] = Shard(d)
     return tuple(out)
 
 

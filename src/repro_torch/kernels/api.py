@@ -84,6 +84,7 @@ _BUILTIN_OPS = (
     "repro_torch.kernels.decode_attn.ops",
     "repro_torch.kernels.paged_attn.ops",
     "repro_torch.kernels.rmsnorm.ops",
+    "repro_torch.kernels.expert_a2a.ops",
 )
 
 

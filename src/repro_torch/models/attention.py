@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.dist import collectives
-from repro_torch.dist.sharding import constrain, mesh_axis_size
+from repro_torch.dist.sharding import constrain, is_dtensor, mesh_axis_size
 from repro_torch.models import common
 from repro_torch.models.common import (
     Spec, apply_rope, as_positions, blockwise_attention, decode_attention,
@@ -62,6 +62,8 @@ def ring_update(buf: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
     """
     size = buf.shape[1]
     pos = as_positions(pos, buf.device)
+    if is_dtensor(buf):
+        return _ring_update_shards(buf, new, pos)
     slot = torch.remainder(pos, size).long()         # pos >= 0: lax.rem
     if pos.ndim == 0:
         # a tensor index, so no host sync
@@ -71,6 +73,27 @@ def ring_update(buf: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
     out = collectives.index_copy(buf.reshape((-1,) + tuple(buf.shape[2:])),
                                  0, flat, new[:, 0])
     return out.reshape(buf.shape)
+
+
+def _ring_update_shards(buf, new, pos):
+    """:func:`ring_update` of a DTensor cache: each rank writes the rows
+    and slots of its own shard, reading ``new`` laid out as ``buf`` with
+    the slot dim whole; the cache keeps its layout."""
+    size = buf.shape[1]
+    new = collectives.redistribute("reshard", collectives.as_dtensor(new, buf),
+                                   collectives.without_dims(
+                                       buf.placements, (1,), buf.ndim))
+    if is_dtensor(pos):
+        pos = pos.full_tensor()
+    local, nl = buf.to_local(), new.to_local()
+    off = collectives.local_offsets(buf)
+    rows = torch.arange(local.shape[0], device=local.device)
+    pos_b = pos.reshape(-1).expand(buf.shape[0])[rows + off[0]]
+    slot = torch.remainder(pos_b, size).long() - off[1]
+    hit = torch.nonzero((slot >= 0) & (slot < local.shape[1]))[:, 0]
+    out = collectives._bytes(local).clone()
+    out[hit, slot[hit]] = collectives._bytes(nl.to(local.dtype))[hit, 0]
+    return collectives.from_local(out.view(local.dtype), buf)
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, k_positions, pos,

@@ -188,11 +188,70 @@ def stack_layer_specs(layer_specs: PyTree, n_layers: int) -> PyTree:
 
 def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` with ``jnp.einsum``'s dtype promotion: every
-    operand is cast to the operands' common dtype first."""
+    operand is cast to the operands' common dtype first. Without autograd
+    (serving), DTensor operands contract shard by shard
+    (:func:`_einsum_on_shards`)."""
     dt = operands[0].dtype
     for t in operands[1:]:
         dt = torch.promote_types(dt, t.dtype)
-    return torch.einsum(eq, *(t.to(dt) for t in operands))
+    operands = tuple(t.to(dt) for t in operands)
+    if not torch.is_grad_enabled() and any(is_dtensor(t) for t in operands):
+        return _einsum_on_shards(eq, *operands)
+    return torch.einsum(eq, *operands)
+
+
+def _explicit(eq: str, operands) -> Tuple[list, str]:
+    """``eq``'s input subscripts and output with each ``...`` spelled out
+    in letters the equation does not use."""
+    ins, out = eq.replace(" ", "").split("->")
+    subs = ins.split(",")
+    free = [c for c in "ABCDEFGHIJKLMNOPQRSTUVWXYZ" if c not in eq]
+    n = max((t.ndim - len(s) + 3 for t, s in zip(operands, subs)
+             if "..." in s), default=0)
+    fill = "".join(free[:n])
+    subs = [s.replace("...", fill[n - (t.ndim - len(s) + 3):])
+            for t, s in zip(operands, subs)]
+    return subs, out.replace("...", fill)
+
+
+def _einsum_on_shards(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """An einsum of DTensors computed shard by shard: on each mesh dim the
+    largest operand sharded there names the subscript split over it;
+    every operand holding that subscript is laid out split the same way,
+    the others whole; each rank contracts its shards, and the result is
+    split where its subscripts are and summed over the ranks that split a
+    contracted subscript: DTensor's own plan for a contraction, without
+    its views of permuted shards (which torch 2.11 refuses when a shard is
+    not contiguous, or when it would flatten a split dim), and with the
+    sum made at once (torch 2.11 cannot add a pending sum to a shard). It
+    carries no gradient through that sum, hence serving only."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    subs, out = _explicit(eq, operands)
+    like = next(t for t in operands if is_dtensor(t))
+    by_size = sorted(zip(operands, subs), key=lambda ts: -ts[0].numel())
+    split = []
+    for m in range(like.device_mesh.ndim):
+        name = None
+        for t, sub in by_size:
+            p = t.placements[m] if is_dtensor(t) else Replicate()
+            if p.is_shard():
+                name = sub[p.dim % t.ndim]
+                break
+        split.append(name)
+    local = []
+    for t, sub in zip(operands, subs):
+        place = tuple(Shard(sub.index(n)) if n is not None and n in sub
+                      else Replicate() for n in split)
+        t = collectives.redistribute("reshard",
+                                     collectives.as_dtensor(t, like), place)
+        local.append(t.to_local())
+    res = torch.einsum(",".join(subs) + "->" + out, *local).contiguous()
+    place = tuple(Replicate() if n is None else Shard(out.index(n))
+                  if n in out else Partial() for n in split)
+    res = collectives.from_local(res, like, place)
+    return collectives.redistribute("reshard", res, collectives.without_dims(
+        place, (), res.ndim))
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -359,6 +418,36 @@ def as_positions(pos, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(pos, np.int32), device=device)
 
 
+def _decode_on_shards(q, k, v, k_positions, pos, k_scale, v_scale):
+    """``decode_attention`` of DTensors, shard by shard: each rank runs it
+    on its own batch rows with every head and cache slot (the caches
+    arrive gathered to that layout), as XLA's partitioner does; a per-row
+    position or slot map is cut to the same rows. The output's rows are
+    laid out as ``q``'s."""
+    from torch.distributed.tensor import Replicate
+
+    place = tuple(p if p.is_shard() and p.dim == 0 else Replicate()
+                  for p in q.placements)
+    q = collectives.redistribute("reshard", q, place)
+    lo = collectives.local_offsets(q)[0]
+    rows = slice(lo, lo + q.to_local().shape[0])
+
+    def local(t):
+        if t is None:
+            return None
+        return collectives.redistribute(
+            "reshard", collectives.as_dtensor(t, q), place).to_local()
+
+    kp = as_positions(k_positions.full_tensor() if is_dtensor(k_positions)
+                      else k_positions, q.device)
+    kp = kp[rows] if kp.ndim == 2 else kp
+    p = as_positions(pos.full_tensor() if is_dtensor(pos) else pos, q.device)
+    p = p[rows] if p.ndim == 1 else p
+    out = decode_attention(q.to_local(), local(k), local(v), kp, p,
+                           local(k_scale), local(v_scale))
+    return collectives.from_local(out, q)
+
+
 def decode_attention(q, k_cache, v_cache, k_positions, pos,
                      k_scale=None, v_scale=None):
     """Single-token attention against a cache. q:(B,1,H,D), caches (B,S,Hkv,D).
@@ -373,6 +462,9 @@ def decode_attention(q, k_cache, v_cache, k_positions, pos,
     scales and is upcast here. The scores and the weighted sum are f32
     einsums, as in the reference.
     """
+    if is_dtensor(q):
+        return _decode_on_shards(q, k_cache, v_cache, k_positions, pos,
+                                 k_scale, v_scale)
     if k_scale is not None:
         k_cache = collectives.dequantize_int8_lastdim(k_cache, k_scale)
         v_cache = collectives.dequantize_int8_lastdim(v_cache, v_scale)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.configs import ModelConfig
 from repro_torch.dist.collectives import current_act_transport
 from repro_torch.dist.sharding import constrain
+from repro_torch.kernels.expert_a2a import expert_a2a
 from repro_torch.models.common import Spec, einsum
 
 GROUP = 512  # tokens per dispatch group (upper bound)
@@ -63,14 +64,12 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor, mode: str = "train"
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d) -> (B, S, d), aux metrics (load-balance loss etc.).
 
-    Train and prefill use the einsum dispatch. The reference routes int8
-    expert-parallel decode through the ``expert_a2a`` op instead; that op
-    comes with serving across ranks, so reaching it here raises.
+    Train and prefill use the einsum dispatch. Decode under the int8
+    activation transport routes the dispatch buffers through the
+    ``expert_a2a`` op, as the reference does: under the "ep" preset on a
+    mesh that boundary is the expert all-to-all, carrying s8 values and
+    scales.
     """
-    if mode == "decode" and current_act_transport() == "int8":
-        raise NotImplementedError(
-            "moe_apply: the int8 expert_a2a dispatch comes with serving "
-            "across ranks (ROADMAP queue 1, item 3b)")
     b, s, d = x.shape
     n_tokens = b * s
     m = _group_size(n_tokens)
@@ -103,7 +102,10 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor, mode: str = "train"
         "batch", None, "experts", None)
 
     xe = einsum("gmec,gmd->gecd", dispatch.to(x.dtype), xt)     # (g,e,c,d)
-    xe = constrain(xe, "batch", "experts", None, "act_embed")
+    if mode == "decode" and current_act_transport() == "int8":
+        xe = expert_a2a(xe)
+    else:
+        xe = constrain(xe, "batch", "experts", None, "act_embed")
     h_gate = constrain(einsum("gecd,edf->gecf", xe, p["w_gate"]),
                        "batch", "experts", None, None)
     h_up = einsum("gecd,edf->gecf", xe, p["w_up"])

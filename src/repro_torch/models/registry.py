@@ -272,8 +272,8 @@ class StateStore:
             ba = la.index("slots")
             shape = list(leaf.shape)
             shape[ba] = 1
-            return _shd.constrain(
-                _write_row(leaf, leaf.new_zeros(shape), ba, slot), *la)
+            zeros = torch.zeros(shape, dtype=leaf.dtype, device=leaf.device)
+            return _shd.constrain(_write_row(leaf, zeros, ba, slot), *la)
         return tree_map(zero, self.state_axes(), state, is_leaf=is_axes)
 
 
@@ -398,10 +398,14 @@ class PagedStateStore(StateStore):
         out = {}
         for name, leaf in state.items():
             i = self._pool_axis(dense_axes[name])
-            g = collectives.index_select(leaf, i, pt.to(leaf.device))
-            shape = leaf.shape[:i] + (self.rows, self.total) \
-                + leaf.shape[i + 2:]
-            out[name] = _shd.constrain(g.reshape(shape), *dense_axes[name])
+
+            def gather(t, i=i):
+                g = collectives.index_select(t, i, pt.to(t.device))
+                return g.reshape(t.shape[:i] + (self.rows, self.total)
+                                 + t.shape[i + 2:])
+            out[name] = _shd.constrain(
+                collectives.on_local(gather, leaf, (i, i + 1)),
+                *dense_axes[name])
         return out
 
     def scatter_dense(self, state, dense, page_table):
@@ -413,14 +417,18 @@ class PagedStateStore(StateStore):
         pool_axes = self.state_axes()
         out = {}
         for name, leaf in state.items():
-            pages = dense[name].reshape(
-                leaf.shape[:1] + (self.rows * self.pages_per_row, self.page)
-                + leaf.shape[3:])
             dst = torch.as_tensor(pt[live], device=leaf.device)
             src = torch.as_tensor(live, device=leaf.device)
-            new = collectives.index_copy(
-                leaf, 1, dst, collectives.index_select(pages, 1, src))
-            out[name] = _shd.constrain(new, *pool_axes[name])
+
+            def scatter(pool, d):
+                pages = d.reshape(pool.shape[:1] + (
+                    self.rows * self.pages_per_row, self.page)
+                    + pool.shape[3:])
+                return collectives.index_copy(
+                    pool, 1, dst, collectives.index_select(pages, 1, src))
+            out[name] = _shd.constrain(
+                collectives.on_local(scatter, leaf, (1, 2), dense[name]),
+                *pool_axes[name])
         return out
 
     # --- paged admission --------------------------------------------------
@@ -451,11 +459,15 @@ class PagedStateStore(StateStore):
         pool_axes = self.state_axes()
         out = {}
         for name, leaf in state.items():
-            pages = store_slc[name].reshape(
-                leaf.shape[:1] + (n_live, self.page) + leaf.shape[3:])
-            new = collectives.index_copy(
-                leaf, 1, torch.as_tensor(page_idx, device=leaf.device), pages)
-            out[name] = _shd.constrain(new, *pool_axes[name])
+            idx = torch.as_tensor(page_idx, device=leaf.device)
+
+            def admit(pool, slc):
+                pages = slc.reshape(pool.shape[:1] + (n_live, self.page)
+                                    + pool.shape[3:])
+                return collectives.index_copy(pool, 1, idx, pages)
+            out[name] = _shd.constrain(
+                collectives.on_local(admit, leaf, (1, 2), store_slc[name]),
+                *pool_axes[name])
         return out
 
 

@@ -89,13 +89,13 @@ def _mlstm_chunk(carry, blk):
     m_inter = b_cum + m[:, None]                                 # (B,t,H)
     m_t = torch.maximum(m_intra, m_inter)
     w = torch.exp(D - m_t[:, :, None, :])                        # (B,t,s,H)
-    scores = torch.einsum("bthd,bshd->btsh", qf, kf)             # (B,t,s,H)
-    y_intra = torch.einsum("btsh,btsh,bshd->bthd", w, scores, vf)
+    scores = einsum("bthd,bshd->btsh", qf, kf)                   # (B,t,s,H)
+    y_intra = einsum("btsh,btsh,bshd->bthd", w, scores, vf)
     inter_scale = torch.exp(m_inter - m_t)                       # (B,t,H)
-    y_inter = torch.einsum("bthd,bhde->bthe", qf, C) * inter_scale[..., None]
-    n_t = torch.einsum("btsh,bshd->bthd", w, kf) \
+    y_inter = einsum("bthd,bhde->bthe", qf, C) * inter_scale[..., None]
+    n_t = einsum("btsh,bshd->bthd", w, kf) \
         + n[:, None] * inter_scale[..., None]                    # (B,t,H,dh)
-    denom = torch.maximum(torch.abs(torch.einsum("bthd,bthd->bth", n_t, qf)),
+    denom = torch.maximum(torch.abs(einsum("bthd,bthd->bth", n_t, qf)),
                           torch.exp(-m_t))
     y = (y_intra + y_inter) / denom[..., None]                   # (B,t,H,dh)
     # ---- state update to end of chunk ----
@@ -106,9 +106,9 @@ def _mlstm_chunk(carry, blk):
     # C stored k-major: C[d, e] = sum_s decay_s * k_s[d] * v_s[e], so queries
     # contract over the k dimension (first index)
     C_new = C * torch.exp(b_last + m - m_new)[..., None, None] \
-        + torch.einsum("bsh,bshd,bshe->bhde", wC, kf, vf)
+        + einsum("bsh,bshd,bshe->bhde", wC, kf, vf)
     n_new = n * torch.exp(b_last + m - m_new)[..., None] \
-        + torch.einsum("bsh,bshd->bhd", wC, kf)
+        + einsum("bsh,bshd->bhd", wC, kf)
     return (C_new, n_new, m_new), y
 
 
@@ -140,11 +140,11 @@ def mlstm_apply(cfg: ModelConfig, p, x, mode: str, cache: Optional[dict]
         is_ = torch.exp(i_pre[:, 0] - m_new)[..., None, None]
         kf = k[:, 0].float()
         vf = v[:, 0].float()
-        C_new = fs * C + is_ * torch.einsum("bhd,bhe->bhde", kf, vf)
+        C_new = fs * C + is_ * einsum("bhd,bhe->bhde", kf, vf)
         n_new = fs[..., 0] * n + is_[..., 0] * kf
         qf = q[:, 0].float()
-        num = torch.einsum("bhd,bhde->bhe", qf, C_new)
-        den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", n_new, qf)),
+        num = einsum("bhd,bhde->bhe", qf, C_new)
+        den = torch.maximum(torch.abs(einsum("bhd,bhd->bh", n_new, qf)),
                             torch.exp(-m_new))
         y = (num / den[..., None])[:, None]                      # (B,1,H,dh)
         new_cache = {"C": C_new.to(cache["C"].dtype),
@@ -211,8 +211,8 @@ def _slstm_pre(n_heads, r_gates, b_gates, x_t, h_prev):
     b = x_t.shape[0]
     d = h_prev.shape[-1]
     hp = h_prev.reshape(b, n_heads, d // n_heads)
-    rec = torch.einsum("ghde,bhd->gbhe", r_gates.float(),
-                       hp.float()).reshape(4, b, d)
+    rec = einsum("ghde,bhd->gbhe", r_gates.float(),
+                 hp.float()).reshape(4, b, d)
     return x_t.float().transpose(0, 1) + rec + b_gates.float()[:, None]
 
 

@@ -5,7 +5,8 @@ The port of ``src/repro/train/step.py``. Gradients come from autograd over
 the tree's leaves. Each step runs where the parameters are and returns new
 trees, as the reference's does. The serve steps enter the activation
 transport and KV storage scopes around every call and run under
-``torch.inference_mode()``.
+``torch.no_grad()`` (not ``inference_mode``, whose tensors a DTensor
+cannot carry).
 
 The train step has three forms, as in the reference:
 
@@ -290,7 +291,7 @@ def make_encode_step(cfg: ModelConfig, act_transport: Optional[str] = "bf16"):
     """Encoder-only serving: full-sequence unit logits (HuBERT-style)."""
     _check_act_transport(act_transport)
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def encode_step(params, batch):
         with collectives.act_transport_scope(act_transport):
             logits, _ = transformer.forward(cfg, params, batch, "encode")
@@ -311,7 +312,7 @@ def make_prefill_step(cfg: ModelConfig, act_transport: Optional[str] = "bf16"):
     """
     _check_act_transport(act_transport)
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def prefill_step(params, batch):
         with collectives.act_transport_scope(act_transport):
             logits, cache = transformer.forward(cfg, params, batch, "prefill")
@@ -340,7 +341,7 @@ def make_decode_step(cfg: ModelConfig, cache_len_total: int,
         model_registry.require(cfg, "quantized_storage",
                                f"kv_storage={kv_storage!r}")
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def decode_step(params, cache, batch):
         with collectives.act_transport_scope(act_transport), \
                 collectives.kv_storage_scope(kv_storage):

@@ -4,8 +4,9 @@ alone.
 Every module under ``src/repro_torch`` (the model slice's ``configs``,
 ``dist`` and ``models``, the training slice's ``train`` and ``launch``,
 and the serving slice's ``configs.shapes``, ``models.registry``,
-``dist.fanin`` and ``launch.serve`` included, and the multi-rank slice's
-``dist.spawn``) imports in a fresh interpreter with no Triton and no
+``dist.fanin`` and ``launch.serve`` included, the multi-rank slice's
+``dist.spawn``, and the serving-across-ranks slice's
+``kernels.expert_a2a``) imports in a fresh interpreter with no Triton and no
 CUDA, and leaves neither ``jax``, nor ``ml_dtypes``, nor any module of the
 JAX package in ``sys.modules``; a static scan finds no import of any of
 them; and the merge's default device refuses to run silently on the CPU.
@@ -126,6 +127,39 @@ def test_the_ranks_slice_imports_without_a_process_group():
         "from repro_torch.train import checkpoints, step\n"
         "assert not dist.is_initialized()\n"
         "assert not collectives._staging\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'ml_dtypes', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_the_serving_ranks_slice_is_collected():
+    names = _port_modules()
+    for mod in ("repro_torch.kernels.expert_a2a",
+                "repro_torch.kernels.expert_a2a.ops",
+                "repro_torch.launch.serve", "repro_torch.dist.collectives"):
+        assert mod in names, mod
+
+
+def test_the_serving_ranks_slice_imports_without_a_process_group():
+    """The serve launcher's meshes, reports and mover, and the expert
+    all-to-all op, import without starting a process, joining a group or
+    touching a device: the sub-meshes are built when called."""
+    code = (
+        "import sys\n"
+        "sys.modules['triton'] = None\n"
+        "import torch.distributed as dist\n"
+        "from repro_torch.kernels.expert_a2a import expert_a2a, ops\n"
+        "from repro_torch.launch import serve\n"
+        "from repro_torch.kernels import api\n"
+        "assert 'expert_a2a' in api.ops()\n"
+        "assert not dist.is_initialized()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'ml_dtypes', 'repro'))\n"
         "assert not bad, bad\n"

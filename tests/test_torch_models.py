@@ -219,9 +219,9 @@ def test_transformer_lm_xlstm_blocks_are_a_list():
 
 
 def test_other_modes_wait_for_serving():
-    """The serve modes now run (``tests/test_torch_serve_steps.py`` holds
-    them against the reference); what still waits is the int8
-    expert-parallel MoE decode, for the multi-GPU slice."""
+    """The serve modes run (``tests/test_torch_serve_steps.py`` holds
+    them against the reference), the int8 MoE decode too: it sends its
+    dispatch buffers through ``expert_a2a``, once per layer."""
     cfg = smoke_config("granite-3-8b")
     params = tf.init_params(cfg, seed=0, device="cpu")
     logits, cache = tf.forward(
@@ -234,12 +234,16 @@ def test_other_modes_wait_for_serving():
         tf.forward(cfg, params, {"tokens": torch.zeros(1, 4, dtype=torch.int32)},
                    mode="generate")
     from repro_torch.dist import collectives
+    from repro_torch.kernels.expert_a2a import ops as a2a_ops
     moe_cfg = smoke_config("qwen3-moe-30b-a3b")
     moe_params = tf.init_params(moe_cfg, seed=0, device="cpu")
     cache = tf.init_cache(moe_cfg, 1, 8, device="cpu")
     batch = {"tokens": torch.zeros(1, 1, dtype=torch.int32),
              "pos": torch.tensor(3, dtype=torch.int32)}
-    with collectives.act_transport_scope("int8"), \
-            pytest.raises(NotImplementedError, match="queue 1, item 3b"):
-        tf.forward(moe_cfg, moe_params, batch, mode="decode", cache=cache,
-                   cache_len_total=8)
+    a2a_ops.reset_calls()
+    with collectives.act_transport_scope("int8"):
+        logits, _ = tf.forward(moe_cfg, moe_params, batch, mode="decode",
+                               cache=cache, cache_len_total=8)
+    assert logits.shape == (1, moe_cfg.vocab)
+    assert bool(torch.isfinite(logits.float()).all())
+    assert a2a_ops.calls() == moe_cfg.n_layers

@@ -46,7 +46,7 @@ class TestFitBlock:
 class TestRegistry:
     def test_builtin_ops_registered(self):
         assert set(api.ops()) == {"compact_pack", "rmsnorm", "decode_attn",
-                                  "paged_attn", "flash_attn"}
+                                  "paged_attn", "flash_attn", "expert_a2a"}
 
     def test_register_rejects_default_outside_candidates(self):
         bad = api.TunableOp(

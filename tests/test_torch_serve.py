@@ -157,12 +157,15 @@ def test_greedy_tokens_equal_reference(arch, mode, models):
 
 
 def test_moe_int8_act_decode_waits_for_expert_a2a(models):
-    """The reference sends int8 MoE decode through ``expert_a2a``; the
-    port raises, naming the multi-GPU item."""
-    _, _, cfg, tp = models("qwen3-moe-30b-a3b")
-    with pytest.raises(NotImplementedError, match="queue 1, item 3b"):
-        serve.generate(cfg, tp, _prompts(cfg, 2, 8), max_new=2,
-                       act_transport="int8")
+    """The reference sends int8 MoE decode through ``expert_a2a``; so
+    does the port, on one device too: its greedy tokens equal the
+    reference's."""
+    rcfg, rp, cfg, tp = models("qwen3-moe-30b-a3b")
+    prompts = _prompts(cfg, 2, 8)
+    want = ref_serve.generate(rcfg, rp, prompts, max_new=4,
+                              act_transport="int8")
+    got = serve.generate(cfg, tp, prompts, max_new=4, act_transport="int8")
+    assert (got == want).all(), (got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -565,30 +568,90 @@ def test_fanin_module_is_the_reference_copy():
 # refusals, the launcher, the shapes
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw", [dict(decode_mesh=object()),
-                                dict(decode_rules=object()),
-                                dict(prefill_meshes=[object()])])
+@pytest.mark.parametrize("kw", [dict(decode_mesh="local"),
+                                dict(decode_rules="serve_decode"),
+                                dict(prefill_meshes="two")])
 def test_multi_device_arguments_wait_for_item_3(dense, kw):
+    """The multi-device arguments behave as the reference's in one
+    process: a decode mesh needs a prefill mesh, decode rules alone leave
+    one device's tokens as they are, and fan-in needs one prefill mesh per
+    worker. (Serving across ranks: ``test_torch_serve_ranks.py``.)"""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_local_mesh
     cfg, params = dense
-    with pytest.raises(NotImplementedError, match="queue 1, item 3b"):
-        serve.generate(cfg, params, _prompts(cfg, 2, 8), max_new=2, **kw)
+    prompts = _prompts(cfg, 2, 8)
+    local = make_local_mesh(device="cpu")
+    if "decode_mesh" in kw:
+        with pytest.raises(ValueError, match="needs a prefill mesh too"):
+            serve.generate(cfg, params, prompts, max_new=2,
+                           decode_mesh=local)
+    elif "decode_rules" in kw:
+        out = serve.generate(cfg, params, prompts, max_new=2,
+                             decode_rules=shd.PRESETS["serve_decode"])
+        assert (out == serve.generate(cfg, params, prompts,
+                                      max_new=2)).all()
+    else:
+        with pytest.raises(ValueError, match="one mesh per worker"):
+            serve.generate(cfg, params, prompts, max_new=2,
+                           prefill_meshes=[local, local])
 
 
 @pytest.mark.parametrize("fn", ["make_cache_mover", "make_disagg_meshes",
                                 "make_fanin_meshes", "disagg_decode_report",
                                 "fanin_report"])
-def test_multi_device_functions_wait_for_item_3(fn):
-    with pytest.raises(NotImplementedError, match="queue 1, item 3b"):
-        getattr(serve, fn)(smoke_config("granite-3-8b"))
+def test_multi_device_functions_wait_for_item_3(fn, dense):
+    """Each multi-device function in one process, where the reference
+    degrades to (1, 1) meshes: the movers are the identity (bf16) and the
+    one-device round trip (int8), the meshes are the one-process mesh, the
+    disaggregated report moves no byte, the fan-in report is the
+    reference's."""
+    from repro_torch.launch.mesh import make_local_mesh
+    cfg, params = dense
+    if fn == "make_cache_mover":
+        _, cache = step_lib.make_prefill_step(cfg)(
+            params, {"tokens": torch.from_numpy(_prompts(cfg, 2, 8))})
+        bf16 = serve.make_cache_mover(cfg, 2, 8, make_local_mesh(
+            device="cpu"), None, "bf16", None)(cache)
+        assert all(a is b for a, b in zip(tree_leaves(bf16),
+                                           tree_leaves(cache)))
+        int8 = serve.make_cache_mover(cfg, 2, 8, None, None, "int8",
+                                      None)(cache)
+        want = serve.make_cache_transfer_step(cfg, 2, 8, "int8")(cache)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(int8),
+                                                      tree_leaves(want)))
+    elif fn == "make_disagg_meshes":
+        pre, dec = serve.make_disagg_meshes(cfg, device="cpu")
+        assert pre.shape == dec.shape == {"data": 1, "model": 1}
+    elif fn == "make_fanin_meshes":
+        pres, dec = serve.make_fanin_meshes(cfg, 3, device="cpu")
+        assert len(pres) == 3 and dec.shape == {"data": 1, "model": 1}
+        with pytest.raises(ValueError, match="at least one prefill worker"):
+            serve.make_fanin_meshes(cfg, 0, device="cpu")
+    elif fn == "disagg_decode_report":
+        rep = serve.disagg_decode_report(
+            cfg, 2, 16, make_local_mesh(device="cpu"), ici_bw=1e9,
+            hbm_bw=1e12, params=params)
+        assert set(rep["cells"]) == {f"{t}x{s}" for t in ("bf16", "int8")
+                                     for s in ("bf16", "int8", "f8")}
+        assert all(c["transfer_wire_bytes_bf16eq"] == 0
+                   for c in rep["cells"].values())
+    else:
+        rcfg = ref_smoke_config("granite-3-8b")
+        kw = dict(workers=2, slots=3, classes=2, evict="priority",
+                  max_new=6, decode_step_s=0.01, transfer_s=0.05)
+        assert serve.fanin_report(cfg, 8, 48, **kw) == \
+            ref_serve.fanin_report(rcfg, 8, 48, **kw)
 
 
 def test_a_larger_mesh_waits_but_a_local_one_serves(dense):
+    """A one-process mesh of two devices is refused (more than one device
+    is a ``DeviceMesh`` over ranks); the one-device mesh serves."""
     from repro_torch.launch.mesh import LocalMesh, make_local_mesh
     cfg, params = dense
     prompts = _prompts(cfg, 2, 8)
     two = LocalMesh(("data", "model"),
                     np.array([[torch.device("cpu")] * 2], dtype=object))
-    with pytest.raises(NotImplementedError, match="queue 1, item 3b"):
+    with pytest.raises(ValueError, match="one-process mesh of 2 devices"):
         serve.generate(cfg, params, prompts, max_new=2, mesh=two)
     out = serve.generate(cfg, params, prompts, max_new=2,
                          mesh=make_local_mesh(device="cpu"))
@@ -624,9 +687,11 @@ def test_main_defaults_to_the_card_and_refuses_without_one(monkeypatch):
     assert serve.build_parser().parse_args([]).device == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--max-new", "1"])
-    for flags in (["--disagg"], ["--tp", "2"]):
-        with pytest.raises(NotImplementedError, match="queue 1, item 3b"):
-            serve.main(flags + ["--device", "cpu"])
+    # one process: --disagg serves on the one-process pair of meshes, as
+    # the reference's on one device; --tp 2 needs a process group
+    serve.main(["--disagg", "--max-new", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="needs a process group"):
+        serve.main(["--tp", "2", "--device", "cpu"])
 
 
 def test_parser_matches_the_reference():

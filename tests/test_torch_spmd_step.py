@@ -280,14 +280,14 @@ def test_sharded_save_writes_the_one_device_bytes_once(spmd):
 
 
 def test_restore_with_shardings_round_trips(spmd):
-    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor import Replicate, Shard
 
     for got in spmd:
         assert got["restored"] == (STEPS, STEPS, True)
         assert got["empty"] == "missing"
-        # (vocab, embed) on (data 4, model 1): embed over data, vocab over
-        # the model axis of one
-        assert got["elastic"] == ((Shard(1), Shard(0)), True)
+        # (vocab, embed) on (data 4, model 1): embed over data; a model
+        # axis of one splits nothing, so vocab is replicated over it
+        assert got["elastic"] == ((Shard(1), Replicate()), True)
 
 
 def _launch_rank(rank, world, init):
@@ -305,7 +305,7 @@ def _launch_rank(rank, world, init):
 
 
 def test_the_launcher_across_four_ranks(tmp_path):
-    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor import Replicate, Shard
 
     res = run_ranks(_launch_rank, 4, timeout=GROUP_S, tmp_dir=str(tmp_path))
     with contextlib.redirect_stdout(io.StringIO()):
@@ -318,7 +318,7 @@ def test_the_launcher_across_four_ranks(tmp_path):
     assert res[0]["steps"] == [6] and not any(r["steps"] for r in res[1:])
     for r in res:
         assert r["losses"] == res[0]["losses"]
-        assert r["embed"] == (Shard(1), Shard(0))
+        assert r["embed"] == (Shard(1), Replicate())
     for a, b in zip(res[0]["losses"], want):
         assert abs(a - b) <= LAUNCH_TOL * abs(b), (a, b)
     assert res[0]["losses"][-1] < res[0]["losses"][0]

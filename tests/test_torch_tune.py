@@ -23,10 +23,10 @@ from repro_torch.core import autotune
 from repro_torch.kernels import api, tune, tuned
 
 PORTED_OPS = ("compact_pack", "rmsnorm", "decode_attn", "paged_attn",
-              "flash_attn")
+              "flash_attn", "expert_a2a")
 # ops whose candidates equal the reference's (flash_attn's block_k takes
 # the kv tiles the card's kernel is built for)
-SAME_GRID_OPS = PORTED_OPS[:-1]
+SAME_GRID_OPS = tuple(o for o in PORTED_OPS if o != "flash_attn")
 
 
 def _objective(point):
