@@ -132,6 +132,18 @@ Needs one CUDA card and ``nvcc``. Phases, each reported on its own lines:
     run; then one NCCL rank at world 1 on a (1, 1) ``DeviceMesh``: the
     parameters laid out and gathered back, the data-parallel step under
     ``int8_ef``.
+13. ``serve/ranks``: serving across the same ranks (``SERVE_RANKS_PLAN``).
+14. ``dryrun/...``: the dry-run analysis (``launch/dryrun.py``) in a
+    subprocess, since its fake process group of 256 ranks cannot share a
+    process with phases 12-13's group: fake tensors on the card, the
+    ``(16, 16)`` mesh; ``paper-lm-100m`` ``train_4k`` under both gradient
+    transports, ``granite-3-8b`` ``decode_32k`` under ``serve_sp`` in
+    both activation transports (with the ``disagg`` and ``fanin``
+    blocks), ``qwen3-moe-30b-a3b`` ``decode_32k`` under ``ep`` (the
+    ``expert_a2a`` wire of its int8 program) and ``hubert-xlarge``
+    ``decode_32k``, which must come back ``skip``. Per cell its roofline
+    terms and its wall seconds on the host; gated: every cell ``ok`` (or
+    the skip), and the int8 act-gather wire below bf16's over 1.5.
 
 Times are CUDA events around each call, the host's work up to the launch
 included, as a user of the op pays it. Each kernel's entry also carries
@@ -3646,6 +3658,109 @@ def report_serve_ranks(res: list, plan: dict, args, smi: str) -> int:
     return sum(launches.values())
 
 
+# phase 14's cells: (CLI arguments, the record tags they write)
+DRYRUN_CELLS = (
+    (["--arch", "paper-lm-100m", "--shape", "train_4k",
+      "--grad-transport", "both"],
+     ["paper-lm-100m__train_4k__16x16",
+      "paper-lm-100m__train_4k__16x16__int8_ef"]),
+    (["--arch", "granite-3-8b", "--shape", "decode_32k", "--preset",
+      "serve_sp", "--act-transport", "both"],
+     ["granite-3-8b__decode_32k__16x16__serve_sp",
+      "granite-3-8b__decode_32k__16x16__serve_sp-act_int8"]),
+    (["--arch", "qwen3-moe-30b-a3b,hubert-xlarge", "--shape", "decode_32k",
+      "--preset", "ep"],
+     ["qwen3-moe-30b-a3b__decode_32k__16x16__ep",
+      "hubert-xlarge__decode_32k__16x16__ep"]),
+)
+DRYRUN_TIMEOUT_S = 300
+
+
+def phase_dryrun(smi: str) -> dict:
+    """Phase 14: ``python -m repro_torch.launch.dryrun`` on the card's
+    fake (16, 16) world, one subprocess per row of ``DRYRUN_CELLS``; the
+    records are read back and gated. Returns them by tag."""
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    recs = {}
+    try:
+        for argv, tags in DRYRUN_CELLS:
+            t0 = time.time()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--mesh", "pod", "--out", out, "--force"] + argv,
+                capture_output=True, text=True, env=env, cwd=ROOT,
+                timeout=DRYRUN_TIMEOUT_S)
+            wall = time.time() - t0
+            for line in proc.stdout.splitlines():
+                print(f"dryrun/log {line}")
+            if proc.returncode != 0:
+                print(proc.stderr[-3000:], file=sys.stderr)
+                raise RuntimeError(f"dryrun: {' '.join(argv)} exited "
+                                   f"{proc.returncode}")
+            print(f"dryrun/run {' '.join(argv)}: {wall:.1f} s with the "
+                  f"subprocess's imports ({smi})")
+            for tag in tags:
+                with open(os.path.join(out, tag + ".json")) as f:
+                    recs[tag] = json.load(f)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    for tag, rec in recs.items():
+        if tag.startswith("hubert-xlarge"):
+            assert rec["status"] == "skip", rec
+            assert rec["skip_reason"] == \
+                "encoder-only arch: no decode step", rec
+            print(f"dryrun/{tag}: skip ({rec['skip_reason']})")
+            continue
+        assert rec["status"] == "ok", (tag, rec.get("error"),
+                                       rec.get("traceback"))
+        r = rec["roofline"]
+        jc = rec["jaxpr_cost"]
+        print(f"dryrun/{tag}: wall {rec['wall_s']} s (cost walk "
+              f"{rec['jaxpr_cost_s']} s, mesh trace {rec['collectives_s']} "
+              f"s) on the host ({smi}); dot_flops {jc['dot_flops']:.6g} "
+              f"hbm_bytes {jc['hbm_bytes']:.6g}; compute_s "
+              f"{r['compute_s']:.6g} memory_s {r['memory_s']:.6g} "
+              f"collective_s {r['collective_s']:.6g} (bf16 "
+              f"{r['collective_s_bf16']:.6g}, int8 "
+              f"{r['collective_s_int8']:.6g}) dominant {r['dominant']} "
+              f"roofline_fraction {r['roofline_fraction']:.6g}")
+        print(f"dryrun/{tag} collectives: " + json.dumps(
+            {op: [rec["collectives"][op]["count"],
+                  rec["collectives"][op]["wire_bytes_bf16eq"]]
+             for op in ("all-reduce", "all-gather", "reduce-scatter",
+                        "all-to-all", "collective-permute")}))
+        print(f"dryrun/{tag} by kind: " + json.dumps(
+            {k: v["wire_bytes_bf16eq"]
+             for k, v in rec["collectives_by_kind"].items()}))
+        if "disagg" in rec:
+            d = rec["disagg"]
+            print(f"dryrun/{tag} disagg: " + json.dumps(
+                {n: [c["transfer_wire_bytes_bf16eq"],
+                     c["decode_wire_bytes_bf16eq"],
+                     c["cache_resident_bytes_per_device"]]
+                 for n, c in d["cells"].items()}) + f" trace {d['trace_s']} s")
+            print(f"dryrun/{tag} fanin: admission wait "
+                  f"{rec['fanin']['fanin_admission_wait_s']:.6g} s, "
+                  f"evictions {rec['fanin']['fanin_evictions']}")
+    train = recs["paper-lm-100m__train_4k__16x16__int8_ef"]
+    assert "int8_ef_gather" not in train["collectives_by_kind"] or \
+        train["collectives_by_kind"]["int8_ef_gather"]["wire_bytes_bf16eq"] \
+        < train["collectives"]["total_wire_bytes_bf16eq"] / 10, \
+        train["collectives_by_kind"]
+    granite = recs["granite-3-8b__decode_32k__16x16__serve_sp"]
+    act = granite["act_gather_wire_bytes_bf16eq"]
+    print(f"dryrun/act_gather wire bf16eq: bf16 {act['bf16']} int8 "
+          f"{act['int8']} ({act['bf16'] / max(act['int8'], 1):.3f}x)")
+    assert 0 < act["int8"] < act["bf16"] / 1.5, act
+    moe = recs["qwen3-moe-30b-a3b__decode_32k__16x16__ep"]
+    a2a = moe["other_transport"]["collectives_by_kind"].get(
+        "expert_a2a_int8", {"count": 0, "wire_bytes_bf16eq": 0})
+    print(f"dryrun/expert_a2a under ep, int8 program: {a2a['count']} "
+          f"collectives, {a2a['wire_bytes_bf16eq']} bf16eq wire bytes")
+    return recs
+
+
 def main() -> int:
     args = parse_args()
     if not torch.cuda.is_available():
@@ -3720,6 +3835,7 @@ def main() -> int:
                 k["launches"] += ranks_chunks
             k["launches_by_path"]["serve@4"] = 0
         assert serve4 == 0, serve4
+        phase_dryrun(smi)
     finally:
         shutil.rmtree(tuned_dir, ignore_errors=True)
     print(json.dumps({"kernels": kernels}))

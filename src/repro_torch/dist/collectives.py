@@ -410,6 +410,16 @@ def _moves_data(old, new) -> bool:
     return any(a != b and not a.is_replicate() for a, b in zip(old, new))
 
 
+# the kinds of the redistributions in progress, innermost last: what
+# ``launch.analysis.CollectiveMode`` books DTensor's collectives under
+_KINDS: list = []
+
+
+def current_kind() -> Optional[str]:
+    """The kind of the redistribution in progress, or ``None``."""
+    return _KINDS[-1] if _KINDS else None
+
+
 def redistribute(kind: str, x, place):
     """DTensor ``x`` laid out by ``place``; the local bytes it hands over,
     if any, counted under ``kind``."""
@@ -418,7 +428,11 @@ def redistribute(kind: str, x, place):
         return x
     if _moves_data(x.placements, place):
         _count(kind, x.to_local())
-    return x.redistribute(x.device_mesh, place)
+    _KINDS.append(kind)
+    try:
+        return x.redistribute(x.device_mesh, place)
+    finally:
+        _KINDS.pop()
 
 
 def target_placements(shape, logical_axes):

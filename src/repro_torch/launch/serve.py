@@ -57,8 +57,9 @@ Sampling (``temperature > 0``) draws from a ``torch.Generator`` seeded by
 
 The reference prices the disaggregated design space by the compiled
 programs' HLO collective bytes; :func:`disagg_decode_report` runs each
-transfer, slot admission and decode step once on the mesh and reads the
-bytes each rank hands over (``collectives.wire_detail``).
+transfer, slot admission and decode step once on the mesh and counts
+every collective it issues with ``launch.analysis.collective_meter``,
+priced by the reference's ring model.
 """
 
 from __future__ import annotations
@@ -1275,12 +1276,13 @@ def disagg_decode_report(cfg, batch: int, seq_len: int, mesh, *,
                          seed: int = 0):
     """The disaggregated-decode design space on one mesh: every
     cache_transfer x kv_storage (x stream block) combination, priced by
-    the bytes each rank hands over.
+    the wire of the collectives each rank issues.
 
     Every rank of ``mesh`` calls it. Each program runs once on the mesh
-    and ``collectives.wire_detail()`` is read around it (the reference
-    compiles each program and parses its HLO collective bytes): the
-    serve_sp -> serve_decode cache transfer of a ``batch x seq_len``
+    under ``launch.analysis.collective_meter`` (every collective the
+    program issues, DTensor's own included, priced by the ring model; the
+    reference compiles each program and parses its HLO collective bytes):
+    the serve_sp -> serve_decode cache transfer of a ``batch x seq_len``
     cache, the per-slot admission of one request's ``[1, seq_len]`` slice
     (serve_sp layout) into a serve_decode slot table, and one decode step
     per storage arm. ``*_bf16eq`` prices f32 payloads at bf16 bytes, as
@@ -1327,15 +1329,7 @@ def disagg_decode_report(cfg, batch: int, seq_len: int, mesh, *,
                                    .to(s.dtype).to(dev)),
                         abs_tree, is_leaf=is_tensor_spec)
 
-    def wire(fn):
-        """Run ``fn`` once; the bytes this rank handed over, all kinds."""
-        collectives.reset_wire_bytes()
-        fn()
-        det = collectives.wire_detail().values()
-        return {"total_wire_bytes_bf16eq":
-                sum(d["bytes_bf16eq"] for d in det),
-                "total_wire_bytes_bf16eq_s8":
-                sum(d["bytes_s8"] for d in det)}
+    from repro_torch.launch.analysis import collective_meter as wire
 
     skipped = {}
     slot_ok = supports_slot_streaming(cfg)

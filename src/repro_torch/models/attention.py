@@ -78,7 +78,10 @@ def ring_update(buf: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
 def _ring_update_shards(buf, new, pos):
     """:func:`ring_update` of a DTensor cache: each rank writes the rows
     and slots of its own shard, reading ``new`` laid out as ``buf`` with
-    the slot dim whole; the cache keeps its layout."""
+    the slot dim whole; the cache keeps its layout. Every local row is
+    written, a row whose slot lies outside this shard with its own old
+    bytes, so no shape depends on the positions' values (no host sync,
+    and fake tensors can trace it)."""
     size = buf.shape[1]
     new = collectives.redistribute("reshard", collectives.as_dtensor(new, buf),
                                    collectives.without_dims(
@@ -90,9 +93,13 @@ def _ring_update_shards(buf, new, pos):
     rows = torch.arange(local.shape[0], device=local.device)
     pos_b = pos.reshape(-1).expand(buf.shape[0])[rows + off[0]]
     slot = torch.remainder(pos_b, size).long() - off[1]
-    hit = torch.nonzero((slot >= 0) & (slot < local.shape[1]))[:, 0]
+    hit = (slot >= 0) & (slot < local.shape[1])
+    slot = slot.clamp(0, local.shape[1] - 1)
     out = collectives._bytes(local).clone()
-    out[hit, slot[hit]] = collectives._bytes(nl.to(local.dtype))[hit, 0]
+    old = out[rows, slot]
+    hit = hit.reshape((-1,) + (1,) * (old.ndim - 1))
+    out[rows, slot] = torch.where(
+        hit, collectives._bytes(nl.to(local.dtype))[:, 0], old)
     return collectives.from_local(out.view(local.dtype), buf)
 
 

@@ -15,6 +15,7 @@ operands to one dtype as ``jnp.einsum`` does.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Callable, Optional, Tuple, Union
@@ -186,18 +187,40 @@ def stack_layer_specs(layer_specs: PyTree, n_layers: int) -> PyTree:
 # primitives
 # ---------------------------------------------------------------------------
 
+# ``launch.analysis``' hooks, set only during its walks: ``_replay`` runs
+# or replays each ``repeated`` body, ``_einsum_observer(eq, operands)`` is
+# a context around each ``einsum`` call
+_replay: Optional[Callable] = None
+_einsum_observer: Optional[Callable] = None
+
+
+def repeated(fn: Callable) -> Callable:
+    """Mark ``fn`` as a loop body the reference runs as a ``scan`` (a
+    layer, a tile, a recurrent step, a microbatch). It runs as it is;
+    during ``launch.analysis``' walks a further call with the same input
+    signature may be replayed from the first one's counts."""
+    @functools.wraps(fn)
+    def body(*args, **kwargs):
+        if _replay is None:
+            return fn(*args, **kwargs)
+        return _replay(fn, args, kwargs)
+    return body
+
+
 def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` with ``jnp.einsum``'s dtype promotion: every
-    operand is cast to the operands' common dtype first. Without autograd
-    (serving), DTensor operands contract shard by shard
-    (:func:`_einsum_on_shards`)."""
+    operand is cast to the operands' common dtype first. DTensor operands
+    contract shard by shard (:func:`_einsum_on_shards`)."""
     dt = operands[0].dtype
     for t in operands[1:]:
         dt = torch.promote_types(dt, t.dtype)
     operands = tuple(t.to(dt) for t in operands)
-    if not torch.is_grad_enabled() and any(is_dtensor(t) for t in operands):
-        return _einsum_on_shards(eq, *operands)
-    return torch.einsum(eq, *operands)
+    observe = _einsum_observer
+    with contextlib.nullcontext() if observe is None else \
+            observe(eq, operands):
+        if any(is_dtensor(t) for t in operands):
+            return _einsum_on_shards(eq, *operands)
+        return torch.einsum(eq, *operands)
 
 
 def _explicit(eq: str, operands) -> Tuple[list, str]:
@@ -222,9 +245,13 @@ def _einsum_on_shards(eq: str, *operands: torch.Tensor) -> torch.Tensor:
     split where its subscripts are and summed over the ranks that split a
     contracted subscript: DTensor's own plan for a contraction, without
     its views of permuted shards (which torch 2.11 refuses when a shard is
-    not contiguous, or when it would flatten a split dim), and with the
-    sum made at once (torch 2.11 cannot add a pending sum to a shard). It
-    carries no gradient through that sum, hence serving only."""
+    not contiguous, or when it would flatten a split dim; on a production
+    mesh DTensor's own plan also splits a head dim, 12 or 8 heads, over
+    16 ranks and then cannot unflatten it), and with the sum made at once
+    (torch 2.11 cannot add a pending sum to a shard). Gradients flow
+    through it: an operand whole on a mesh dim where the others are split
+    gets its gradient there as a pending sum, which the redistribution's
+    backward reduces."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     subs, out = _explicit(eq, operands)
@@ -243,9 +270,13 @@ def _einsum_on_shards(eq: str, *operands: torch.Tensor) -> torch.Tensor:
     for t, sub in zip(operands, subs):
         place = tuple(Shard(sub.index(n)) if n is not None and n in sub
                       else Replicate() for n in split)
+        # an operand held whole on a mesh dim whose ranks each contract
+        # their own shard of another gets a pending sum as its gradient
+        grad = tuple(Partial() if n is not None and n not in sub else p
+                     for n, p in zip(split, place))
         t = collectives.redistribute("reshard",
                                      collectives.as_dtensor(t, like), place)
-        local.append(t.to_local())
+        local.append(t.to_local(grad_placements=grad))
     res = torch.einsum(",".join(subs) + "->" + out, *local).contiguous()
     place = tuple(Replicate() if n is None else Shard(out.index(n))
                   if n in out else Partial() for n in split)
@@ -316,6 +347,19 @@ def _attn_block(q, k, v, q_pos, k_pos, causal, window, scale):
     return m, l, o
 
 
+@repeated
+def _online_tile(m_run, l_run, o_run, q, k, v, q_pos, k_pos, causal, window,
+                 scale):
+    """One kv tile folded into a q tile's running max, sum and output."""
+    m, l, o = _attn_block(q, k, v, q_pos, k_pos, causal, window, scale)
+    m_new = torch.maximum(m_run, m)
+    a_old = torch.exp(m_run - m_new)
+    a_new = torch.exp(m - m_new)
+    l_run = l_run * a_old + l * a_new
+    o_run = o_run * a_old[..., None] + o * a_new[..., None]
+    return m_new, l_run, o_run
+
+
 def _attention_on_shards(q, k, v, **kw):
     """``blockwise_attention`` of DTensors, shard by shard: attention
     mixes positions and head features but never rows or heads, so each
@@ -382,9 +426,8 @@ def blockwise_attention(q, k, v, *, causal=True, window=0,
     group = h // hkv
     run_axes = ("batch", "kv_heads", None, None)
 
-    def q_step(qi):
-        qblk = q[:, qi * bq:(qi + 1) * bq]
-        qp = q_pos[qi * bq:(qi + 1) * bq]
+    @repeated
+    def q_step(qblk, qp):
         m_run = constrain(torch.full((b, hkv, group, bq), NEG_INF,
                                      dtype=torch.float32, device=dev), *run_axes)
         l_run = constrain(torch.zeros((b, hkv, group, bq), dtype=torch.float32,
@@ -394,21 +437,18 @@ def blockwise_attention(q, k, v, *, causal=True, window=0,
                           *run_axes, None)
         for ki in range(nk):
             sl = slice(ki * bk, (ki + 1) * bk)
-            m, l, o = _attn_block(qblk, k[:, sl], v[:, sl], qp,
-                                  k_positions[sl], causal, window, scale)
-            m_new = torch.maximum(m_run, m)
-            a_old = torch.exp(m_run - m_new)
-            a_new = torch.exp(m - m_new)
-            l_run = l_run * a_old + l * a_new
-            o_run = o_run * a_old[..., None] + o * a_new[..., None]
-            m_run = m_new
+            m_run, l_run, o_run = _online_tile(
+                m_run, l_run, o_run, qblk, k[:, sl], v[:, sl], qp,
+                k_positions[sl], causal, window, scale)
         out = o_run / torch.clamp_min(l_run[..., None], 1e-30)
         out = out.permute(0, 3, 1, 2, 4).reshape(b, bq, h, dv)
         return constrain(out.to(q.dtype), "batch", None, "heads", None)
 
+    tiles = [q_step(q[:, qi * bq:(qi + 1) * bq], q_pos[qi * bq:(qi + 1) * bq])
+             for qi in range(nq)]
     if nq == 1:
-        return q_step(0)[:, :sq]
-    return torch.cat([q_step(qi) for qi in range(nq)], dim=1)[:, :sq]
+        return tiles[0][:, :sq]
+    return torch.cat(tiles, dim=1)[:, :sq]
 
 
 def as_positions(pos, device) -> torch.Tensor:

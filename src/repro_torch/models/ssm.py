@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
 from repro_torch.dist.sharding import constrain
-from repro_torch.models.common import Spec, einsum
+from repro_torch.models.common import Spec, einsum, repeated
 
 DT_RANK = 16
 CHUNK = 256
@@ -123,14 +123,22 @@ def _chunked_ssm(cfg, p, xc):
     h0 = torch.zeros((b, di, n), dtype=torch.float32, device=xc.device)
     ys = []
     for ci in range(s // c):
-        da, dbx, cmat = _ssm_inputs(cfg, p, xc[:, ci * c:(ci + 1) * c])
-        a_cum, b_cum = linear_scan(da, dbx)
-        h = constrain(a_cum * h0[:, None] + b_cum,
-                      "batch", None, "ssm_inner", None)          # (B,c,di,N)
-        ys.append(constrain(torch.einsum("bsin,bsn->bsi", h, cmat),
-                            "batch", None, "ssm_inner"))         # (B,c,di)
-        h0 = h[:, -1]
+        y, h0 = _ssm_chunk(cfg, p, xc[:, ci * c:(ci + 1) * c], h0)
+        ys.append(y)
     return torch.cat(ys, dim=1), h0
+
+
+@repeated
+def _ssm_chunk(cfg, p, xcc, h0):
+    """One chunk of the selective scan from state ``h0``: (y (B,c,di)
+    fp32, the state after the chunk)."""
+    da, dbx, cmat = _ssm_inputs(cfg, p, xcc)
+    a_cum, b_cum = linear_scan(da, dbx)
+    h = constrain(a_cum * h0[:, None] + b_cum,
+                  "batch", None, "ssm_inner", None)              # (B,c,di,N)
+    y = constrain(torch.einsum("bsin,bsn->bsi", h, cmat),
+                  "batch", None, "ssm_inner")                    # (B,c,di)
+    return y, h[:, -1]
 
 
 def ssm_cache_shape(cfg: ModelConfig, batch: int):

@@ -30,11 +30,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs import ModelConfig
 from repro_torch.dist import collectives
 from repro_torch.dist.collectives import act_gather
-from repro_torch.dist.sharding import constrain, remat_contexts
+from repro_torch.dist.sharding import constrain, is_dtensor, remat_contexts
 from repro_torch.models import attention, moe, ssm, xlstm
 from repro_torch.models.common import (
-    Spec, TensorSpec, as_positions, einsum, resolve_device, rms_norm,
-    softmax_xent, stack_layer_specs, swiglu, tree_abstract, tree_axes,
+    Spec, TensorSpec, as_positions, einsum, repeated, resolve_device,
+    rms_norm, softmax_xent, stack_layer_specs, swiglu, tree_abstract, tree_axes,
     tree_init, tree_map,
 )
 
@@ -250,6 +250,7 @@ def quantize_cache(cache: Dict[str, Any], kv_storage: str) -> Dict[str, Any]:
 # layer body (stacked families)
 # ---------------------------------------------------------------------------
 
+@repeated
 def _layer_body(cfg: ModelConfig, mode: str, cache_len_total: int,
                 x, lp, lcache, pos):
     aux = {}
@@ -379,7 +380,7 @@ def _embed_inputs(cfg, params, batch, mode):
         return constrain(einsum("bsf,fd->bsd", batch["frames"],
                                 params["audio_adapter"]),
                          "batch", None, "act_embed")
-    tok = params["embed"][batch["tokens"].long()]
+    tok = _embed(params["embed"], batch["tokens"].long())
     tok = constrain(tok, "batch", None, "act_embed")
     if cfg.frontend == "vit_patches" and mode != "decode":
         vis = einsum("bpf,fd->bpd", batch["patches"],
@@ -387,6 +388,27 @@ def _embed_inputs(cfg, params, batch, mode):
         return constrain(torch.cat([vis, tok], dim=1),
                          "batch", None, "act_embed")
     return tok
+
+
+def _embed(table, ids):
+    """``table[ids]``. A DTensor table is read shard by shard: its vocab
+    dim gathered whole and the ids gathered whole, each rank takes every
+    id's row of its own columns, laid out by those columns (the rows
+    whole) -- a plain index whose backward is local to the rank, where
+    DTensor's own index backward cannot lay out a table split over two
+    mesh dims on torch 2.11."""
+    if not is_dtensor(table):
+        return table[ids]
+    from torch.distributed.tensor import Replicate, Shard
+
+    whole = collectives.redistribute("reshard", table, collectives.without_dims(
+        table.placements, (0,), table.ndim))
+    if is_dtensor(ids):
+        ids = ids.full_tensor()               # integers, no gradient
+    place = tuple(Shard(ids.ndim) if p.is_shard() else Replicate()
+                  for p in whole.placements)
+    return collectives.from_local(whole.to_local()[ids], whole, place,
+                                  shape=tuple(ids.shape) + (table.shape[1],))
 
 
 def _logits(cfg, params, x):

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models import common
-from repro_torch.models.common import Spec, einsum
+from repro_torch.models.common import Spec, einsum, repeated
 
 CHUNK = 256
 NEG = -1e30
@@ -69,6 +69,7 @@ def _mlstm_qkvif(cfg, p, x_conv, x_raw):
     return q, k, v, i, f
 
 
+@repeated
 def _mlstm_chunk(carry, blk):
     """One chunk of the stabilized chunkwise mLSTM.
 
@@ -112,6 +113,7 @@ def _mlstm_chunk(carry, blk):
     return (C_new, n_new, m_new), y
 
 
+@repeated
 def mlstm_apply(cfg: ModelConfig, p, x, mode: str, cache: Optional[dict]
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
     b, s, d = x.shape
@@ -230,6 +232,7 @@ def _slstm_post(pre, state):
     return h_t, c_t, n_t, m_t
 
 
+@repeated
 def _slstm_cell_raw(n_heads, r_gates, b_gates, x_t, state):
     """One sLSTM step. x_t: (B,4,d) pre-projected gates; state: 4x (B,d)."""
     pre = _slstm_pre(n_heads, r_gates, b_gates, x_t, state[0])
@@ -275,22 +278,10 @@ class _SLSTMSequence(torch.autograd.Function):
         d_state = tuple(g_final)
         d_pres = [None] * s
         for t in range(s - 1, -1, -1):
-            d_state = (d_state[0] + g_ys[t],) + tuple(d_state[1:])
             sp = state0 if t == 0 else tuple(x[t - 1] for x in states_seq)
-            pre = _slstm_pre(n_heads, r_gates, b_gates, gates_x[t], sp[0])
-            with torch.enable_grad():
-                pre = pre.detach().requires_grad_()
-                sp_in = tuple(x.detach().requires_grad_() for x in sp)
-                out = _slstm_post(pre, sp_in)
-                d_pre, *d_prev = torch.autograd.grad(
-                    out, (pre,) + sp_in, d_state, allow_unused=True)
-            # h_{t-1} feeds the recurrence only: dh = R^T d_pre
-            dpg = d_pre.reshape(4, bsz, n_heads, dh)
-            dh_prev = torch.einsum("ghde,gbhe->bhd", rf, dpg).reshape(bsz, d)
-            d_state = (dh_prev,) + tuple(
-                torch.zeros_like(x) if g is None else g
-                for x, g in zip(sp_in[1:], d_prev[1:]))
-            d_pres[t] = d_pre
+            d_pres[t], d_state = _slstm_step_back(
+                n_heads, r_gates, b_gates, rf, gates_x[t], sp, d_state,
+                g_ys[t])
         d_pre_seq = torch.stack(d_pres)                   # (S,4,B,d)
 
         # deferred weight-grad contractions: ONE reduction over (S, B)
@@ -304,6 +295,30 @@ class _SLSTMSequence(torch.autograd.Function):
                 dxs.to(gates_x.dtype)) + d_state
 
 
+@repeated
+def _slstm_step_back(n_heads, r_gates, b_gates, rf, x_t, sp, d_state, g_y):
+    """One step of the reverse scan: the gradient at step t's output
+    (``d_state`` plus ``g_y``) back to its pre-activations and its input
+    state. Returns ``(d_pre, d_state_prev)``."""
+    bsz, d = sp[0].shape
+    dh = d // n_heads
+    d_state = (d_state[0] + g_y,) + tuple(d_state[1:])
+    pre = _slstm_pre(n_heads, r_gates, b_gates, x_t, sp[0])
+    with torch.enable_grad():
+        pre = pre.detach().requires_grad_()
+        sp_in = tuple(x.detach().requires_grad_() for x in sp)
+        out = _slstm_post(pre, sp_in)
+        d_pre, *d_prev = torch.autograd.grad(
+            out, (pre,) + sp_in, d_state, allow_unused=True)
+    # h_{t-1} feeds the recurrence only: dh = R^T d_pre
+    dpg = d_pre.reshape(4, bsz, n_heads, dh)
+    dh_prev = torch.einsum("ghde,gbhe->bhd", rf, dpg).reshape(bsz, d)
+    d_state = (dh_prev,) + tuple(
+        torch.zeros_like(x) if g is None else g
+        for x, g in zip(sp_in[1:], d_prev[1:]))
+    return d_pre, d_state
+
+
 def _slstm_sequence(n_heads, r_gates, b_gates, gates_x, state0):
     """gates_x: (S, B, 4, d). Returns (ys (S,B,d), final state)."""
     ys, *final = _SLSTMSequence.apply(n_heads, r_gates, b_gates, gates_x,
@@ -311,6 +326,7 @@ def _slstm_sequence(n_heads, r_gates, b_gates, gates_x, state0):
     return ys, tuple(final)
 
 
+@repeated
 def slstm_apply(cfg: ModelConfig, p, x, mode: str, cache: Optional[dict]
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
     b, s, d = x.shape

@@ -7,12 +7,10 @@ global-norm clip, ``sqrt(v / bc2) + eps``, and ``weight_decay * p`` folded
 into the step. A bf16 parameter is updated in f32 and rounded back; there
 is no f32 master copy. ``step`` is an int32 scalar tensor on the
 parameters' device. The int8 error-feedback transport carries its
-per-leaf residual in the state under ``"ef"``: ``init_state`` and
+per-leaf residual in the state under ``"ef"``: ``init_state``,
+``abstract_state`` (the state's ``TensorSpec``s, for the dry run) and
 ``state_axes`` grow it when ``error_feedback=True``, and
 ``apply_updates`` passes it through untouched (the train step owns it).
-
-``abstract_state`` (the reference's ``ShapeDtypeStruct`` state for the
-dry-run's lowering) waits for the dry-run's port, ROADMAP queue 1, item 4.
 """
 
 from __future__ import annotations
@@ -23,7 +21,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.common import tree_leaves, tree_map, tree_unzip
+from repro_torch.models.common import (TensorSpec, tree_leaves, tree_map,
+                                       tree_unzip)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +117,27 @@ def init_state(params, error_feedback: bool = False,
                 _ef_shape(p, ef_devices), dtype=torch.float32,
                 device=p.device),
             params)
+    return state
+
+
+def abstract_state(abstract_params, error_feedback: bool = False,
+                   ef_devices: Optional[int] = None) -> Dict[str, Any]:
+    """The state's ``TensorSpec``s for parameters of ``abstract_params``'
+    shapes: f32 moments, an int32 ``step`` and, with ``error_feedback``,
+    the f32 residual of ``_ef_shape``."""
+    def f32(p):
+        return TensorSpec(tuple(p.shape), torch.float32)
+
+    def is_spec(x):
+        return isinstance(x, TensorSpec)
+
+    state = {"mu": tree_map(f32, abstract_params, is_leaf=is_spec),
+             "nu": tree_map(f32, abstract_params, is_leaf=is_spec),
+             "step": TensorSpec((), torch.int32)}
+    if error_feedback:
+        state["ef"] = tree_map(
+            lambda p: TensorSpec(_ef_shape(p, ef_devices), torch.float32),
+            abstract_params, is_leaf=is_spec)
     return state
 
 

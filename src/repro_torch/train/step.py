@@ -35,7 +35,7 @@ from repro_torch.dist import collectives
 from repro_torch.dist import sharding
 from repro_torch.models import registry as model_registry
 from repro_torch.models import transformer
-from repro_torch.models.common import (tree_leaves, tree_map,
+from repro_torch.models.common import (repeated, tree_leaves, tree_map,
                                        tree_unflatten, tree_unzip)
 from repro_torch.train import optimizer as opt_lib
 
@@ -73,11 +73,17 @@ def _int8_ef_transport(grads, opt_state, axis_name, block, mesh=None):
         if not sharding.is_dtensor(g):
             return collectives.compressed_psum(g, axis_name, e, block=block,
                                                mesh=mesh)
-        # an SPMD leaf: quantized whole, as on one device, then each rank
-        # keeps its shards; one leaf at a time is whole on a rank
+        # an SPMD leaf: each rank quantizes its shard where the shard is a
+        # run of whole blocks of the leaf's flattened elements, so its
+        # blocks are the one-device step's; a dim whose shards cut a block
+        # is gathered first, that dim only
+        place = _whole_block_placements(g, block)
+        gl = collectives.redistribute("int8_ef_gather", g, place)
+        el = collectives.redistribute("int8_ef_gather", e, place)
         out, new_e = collectives.compressed_psum(
-            g.full_tensor(), None, e.full_tensor(), block=block)
-        return (_distribute_as(out, g), _distribute_as(new_e, e))
+            gl.to_local(), None, el.to_local(), block=block)
+        return (_lay_out_as(collectives.from_local(out, gl), g),
+                _lay_out_as(collectives.from_local(new_e, el), e))
 
     out = tree_map(leaf, grads, opt_state["ef"])
     new_grads, new_ef = tree_unzip(out, 2)
@@ -112,6 +118,7 @@ def make_train_step(cfg: ModelConfig, adamw: opt_lib.AdamWConfig,
                          f"expected one of {GRAD_TRANSPORTS}")
     loss_fn = make_loss_fn(cfg)
 
+    @repeated
     def grad_fn(params, batch):
         leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
         loss, metrics = loss_fn(tree_unflatten(params, leaves), batch)
@@ -158,15 +165,47 @@ def make_train_step(cfg: ModelConfig, adamw: opt_lib.AdamWConfig,
     return _spmd_step(train_step, *active)
 
 
-def _distribute_as(full: torch.Tensor, like) -> Any:
-    """``full``, held whole by every rank, as a DTensor laid out as
-    ``like``: each rank keeps a copy of its shard, nothing moves, and the
-    whole tensor is freed (a shard that is a view would keep it)."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
+def _whole_block_placements(x, block: int) -> tuple:
+    """Placements of DTensor ``x`` under which each rank's shard is a run
+    of whole ``block``-element blocks of ``x``'s flattened elements (so
+    quantizing it flat gives the blocks of quantizing ``x`` whole): ``x``'s
+    own where they do, else with the innermost split dim made whole, one
+    dim at a time. A shard of dim ``d`` is such a run when ``d`` and every
+    split dim splits evenly and its rows times the elements after ``d``
+    fill whole blocks."""
+    from torch.distributed.tensor import Replicate
 
-    out = distribute_tensor(full, like.device_mesh, like.placements,
-                            src_data_rank=None)
-    return DTensor.from_local(out.to_local().clone(), like.device_mesh,
+    mesh = x.device_mesh
+    place = list(x.placements)
+    while True:
+        split: Dict[int, int] = {}
+        for m, p in enumerate(place):
+            if p.is_shard():
+                d = p.dim % x.ndim
+                split[d] = split.get(d, 1) * mesh.size(m)
+        if not split:
+            return tuple(place)
+        d = max(split)
+        inner = 1
+        for n in x.shape[d + 1:]:
+            inner *= n
+        even = all(x.shape[k] % n == 0 for k, n in split.items())
+        if even and (x.shape[d] // split[d]) * inner % block == 0:
+            return tuple(place)
+        place = [Replicate() if p.is_shard() and p.dim % x.ndim == d else p
+                 for p in place]
+
+
+def _lay_out_as(x, like) -> Any:
+    """DTensor ``x``, whose layout splits no dim that ``like``'s does not,
+    laid out as ``like``: each rank keeps a copy of its shard (a local
+    slice, nothing moves), and the larger shard is freed (a view would
+    keep it)."""
+    from torch.distributed.tensor import DTensor
+
+    if tuple(x.placements) != tuple(like.placements):
+        x = x.redistribute(like.device_mesh, like.placements)
+    return DTensor.from_local(x.to_local().clone(), like.device_mesh,
                               like.placements, shape=like.shape,
                               stride=like.stride())
 
@@ -247,9 +286,10 @@ def _spmd_step(train_step, mesh, rules):
     the batch axes: microbatch ``i`` holds the same rows on every mesh,
     and so do the last microbatch's metrics. The model runs on
     DTensors under the rules (``axis_rules`` reads plain tensors as
-    replicated); under ``int8_ef`` each gradient and residual is quantized
-    whole, as on one device, and laid back out. The metrics come back as
-    plain tensors.
+    replicated); under ``int8_ef`` each rank quantizes its shard of each
+    gradient and residual, in the one-device step's blocks
+    (:func:`_whole_block_placements`). The metrics come back as plain
+    tensors.
     """
     from torch.distributed.tensor import DTensor
 

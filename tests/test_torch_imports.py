@@ -5,8 +5,9 @@ Every module under ``src/repro_torch`` (the model slice's ``configs``,
 ``dist`` and ``models``, the training slice's ``train`` and ``launch``,
 and the serving slice's ``configs.shapes``, ``models.registry``,
 ``dist.fanin`` and ``launch.serve`` included, the multi-rank slice's
-``dist.spawn``, and the serving-across-ranks slice's
-``kernels.expert_a2a``) imports in a fresh interpreter with no Triton and no
+``dist.spawn``, the serving-across-ranks slice's
+``kernels.expert_a2a``, and the dry-run slice's ``launch.analysis`` and
+``launch.dryrun``) imports in a fresh interpreter with no Triton and no
 CUDA, and leaves neither ``jax``, nor ``ml_dtypes``, nor any module of the
 JAX package in ``sys.modules``; a static scan finds no import of any of
 them; and the merge's default device refuses to run silently on the CPU.
@@ -160,6 +161,38 @@ def test_the_serving_ranks_slice_imports_without_a_process_group():
         "from repro_torch.kernels import api\n"
         "assert 'expert_a2a' in api.ops()\n"
         "assert not dist.is_initialized()\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'ml_dtypes', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_the_dry_run_slice_is_collected():
+    names = _port_modules()
+    for mod in ("repro_torch.launch.analysis", "repro_torch.launch.dryrun",
+                "repro_torch.train.optimizer"):
+        assert mod in names, mod
+
+
+def test_the_dry_run_slice_imports_without_a_process_group():
+    """The dry run and its analysis import without joining a group, fake
+    or real, and without loading the fake backend's test module: the
+    world is made when a cell needs it."""
+    code = (
+        "import sys\n"
+        "sys.modules['triton'] = None\n"
+        "import torch.distributed as dist\n"
+        "from repro_torch.launch import analysis, dryrun\n"
+        "from repro_torch.train.optimizer import abstract_state\n"
+        "assert not dist.is_initialized()\n"
+        "assert 'torch.testing._internal.distributed.fake_pg' not in "
+        "sys.modules\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'ml_dtypes', 'repro'))\n"
         "assert not bad, bad\n"
