@@ -20,6 +20,9 @@ none of it. Ported layers:
   repro_torch.launch   -- meshes, the training launcher (one process or
                           several ranks) and the serving launcher (one
                           device)
+  repro_torch.obs      -- spans and counters at the layers' boundaries, on
+                          the profiler's clock, recorded while enabled or
+                          profiled
 """
 
 __version__ = "0.1.0"

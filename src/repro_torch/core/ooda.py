@@ -18,9 +18,9 @@ pipelines and owns cross-table decide/act under a shared budget.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Dict, List, Optional, Sequence
 
+from repro_torch import obs
 from repro_torch.core import filters as filt
 from repro_torch.core.act import ActReport, Scheduler
 from repro_torch.core.decide import (BudgetSelection, MoopRanker, TopKSelection,
@@ -96,55 +96,64 @@ class AutoCompPipeline:
         """Produce this pool's ranked candidates. This is the surface the
         fleet scheduler consumes: everything up to (but excluding) the
         decide/act tail."""
-        cands = generate_candidates(tables if tables is not None
-                                    else catalog.tables(),
-                                    self.scope, hybrid=self.hybrid)
-        if report is not None:
-            report.n_candidates = len(cands)
-        self.stats.observe_all(cands)
-        cands = filt.apply_filters(cands, self.pre_filters)
+        with obs.span("autocomp.observe"):
+            cands = generate_candidates(tables if tables is not None
+                                        else catalog.tables(),
+                                        self.scope, hybrid=self.hybrid)
+            if report is not None:
+                report.n_candidates = len(cands)
+            self.stats.observe_all(cands)
+            cands = filt.apply_filters(cands, self.pre_filters)
 
-        # orient
-        compute_traits(cands, self.traits, self.trait_ctx)
-        cands = filt.apply_filters(cands, self.post_filters)
-        if report is not None:
-            report.n_after_filters = len(cands)
+        with obs.span("autocomp.orient"):
+            compute_traits(cands, self.traits, self.trait_ctx)
+            cands = filt.apply_filters(cands, self.post_filters)
+            if report is not None:
+                report.n_after_filters = len(cands)
 
-        # rank (per-candidate quota-adaptive weights if configured)
-        if self.weights_fn is not None:
-            # re-rank with per-candidate weights: score candidates under
-            # their own namespace weights, then order globally
-            names = list(self.ranker.weights)
-            minmax_normalize(cands, names)
-            for c in cands:
-                w = self.weights_fn(c)
-                c.score = sum(
-                    (-wv if n in self.ranker.costs else wv)
-                    * c.normalized.get(n, 0.0) for n, wv in w.items())
-            return sorted(cands, key=lambda c: (-c.score,) + c.key)
-        return self.ranker.rank(cands)
+            # rank (per-candidate quota-adaptive weights if configured)
+            if self.weights_fn is not None:
+                # re-rank with per-candidate weights: score candidates
+                # under their own namespace weights, then order globally
+                names = list(self.ranker.weights)
+                minmax_normalize(cands, names)
+                for c in cands:
+                    w = self.weights_fn(c)
+                    c.score = sum(
+                        (-wv if n in self.ranker.costs else wv)
+                        * c.normalized.get(n, 0.0) for n, wv in w.items())
+                return sorted(cands, key=lambda c: (-c.score,) + c.key)
+            return self.ranker.rank(cands)
 
     # -- the four phases ------------------------------------------------------
     def run_cycle(self, catalog: Catalog,
                   tables: Optional[Sequence] = None) -> CycleReport:
-        t0 = time.perf_counter()
+        """One cycle, recorded (:mod:`repro_torch.obs`, when on) as an
+        ``autocomp.cycle`` span over ``autocomp.observe``, ``orient``,
+        ``decide`` and ``act``; ``wall_s`` is that span's length."""
+        t0 = obs.now()
+        cycle = obs.begin("autocomp.cycle", start=t0)
         rep = CycleReport()
+        try:
+            ranked = self.propose(catalog, tables=tables, report=rep)
 
-        ranked = self.propose(catalog, tables=tables, report=rep)
+            with obs.span("autocomp.decide"):
+                selected = self.decide.select(ranked)
+                rep.n_selected = len(selected)
+                rep.n_unpriced = len(getattr(self.decide, "last_unpriced",
+                                             ()))
+                rep.selected_keys = [c.key for c in selected]
 
-        # decide
-        selected = self.decide.select(ranked)
-        rep.n_selected = len(selected)
-        rep.n_unpriced = len(getattr(self.decide, "last_unpriced", ()))
-        rep.selected_keys = [c.key for c in selected]
+            if self.act is not None:
+                with obs.span("autocomp.act"):
+                    rep.act = self.act.execute(selected)
+                    rep.deferred_keys = [c.key for c in rep.act.deferred]
 
-        # act
-        if self.act is not None:
-            rep.act = self.act.execute(selected)
-            rep.deferred_keys = [c.key for c in rep.act.deferred]
-
-        # feedback loop -> observe (updated file counts / layout changes)
-        if self.feedback_fn is not None and rep.act is not None:
-            self.feedback_fn(rep)
-        rep.wall_s = time.perf_counter() - t0
+            # feedback loop -> observe (updated file counts / layout changes)
+            if self.feedback_fn is not None and rep.act is not None:
+                self.feedback_fn(rep)
+        finally:
+            t1 = obs.now()
+            obs.end(cycle, t1)
+        rep.wall_s = (t1 - t0) * 1e-9
         return rep

@@ -18,17 +18,19 @@ merge: store reads, decode, planning and a delete's row predicate
 up to the kernel launch (``plan``), the kernel (``kernel``), the copy back
 (``d2h``) and the re-encode and store write (``encode``). On a CUDA device the merge
 synchronises after the upload and after the op, where the next stage would
-wait anyway, so the split costs nothing.
+wait anyway, so the split costs nothing. The same clock readings give
+the merge's spans (:mod:`repro_torch.obs`, when on): ``act.merge`` with
+a child ``merge.<stage>`` for each stage.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.data import shards as sh
 from repro_torch.kernels.compact_pack import compact_chunks, plan_compaction
 from repro_torch.kernels.compact_pack.compact_pack import (
@@ -93,7 +95,19 @@ def merge_shards_fn(table: LogStructuredTable, task: CompactionTask,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("merge_shards_fn: no CUDA device; pass "
                            "device='cpu' to run the kernels' plain versions")
-    clock = time.perf_counter
+    with obs.span("act.merge") as merge:
+        result, stamps = _merge(table, task, out_path, filter_fn,
+                                fused_filter, device)
+    for k, a, b in zip(STAGES, stamps, stamps[1:]):
+        STAGE_SECONDS[k] += (b - a) * 1e-9
+        obs.record("merge." + k, a, b, parent=merge)
+    return result
+
+
+def _merge(table, task, out_path, filter_fn, fused_filter, device):
+    """:func:`merge_shards_fn`'s work; returns its result and the clock's
+    readings (``obs.now``) at the start and after each stage."""
+    clock = obs.now
     t0 = clock()
     payloads = []
     lengths = []
@@ -148,11 +162,7 @@ def merge_shards_fn(table: LogStructuredTable, task: CompactionTask,
         result = DataFile(path=out_path, size_bytes=len(raw),
                           num_rows=int(tokens.shape[0]), partition=task.scope,
                           created_at=table.now_fn())
-    t6 = clock()
-    for k, dt in zip(STAGES, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4,
-                              t6 - t5)):
-        STAGE_SECONDS[k] += dt
-    return result
+    return result, (t0, t1, t2, t3, t4, t5, clock())
 
 
 def _sync(device: torch.device) -> None:

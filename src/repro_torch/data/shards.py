@@ -19,6 +19,7 @@ from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.kernels.compact_pack.compact_pack import CHUNK_TOKENS
 from repro_torch.lst.files import DataFile
 from repro_torch.lst.table import LogStructuredTable
@@ -34,11 +35,15 @@ def zipf_tokens(rng: np.random.RandomState, vocab: int, n: int) -> np.ndarray:
 
 
 def encode_shard(tokens: np.ndarray) -> bytes:
-    tokens = np.asarray(tokens, dtype=np.int32)
-    n = tokens.shape[0]
-    pad = (-n) % CHUNK_TOKENS
-    padded = np.concatenate([tokens, np.zeros(pad, np.int32)]) if pad else tokens
-    return _MAGIC + struct.pack("<q", n) + padded.tobytes()
+    """The shard's bytes; recorded as a ``shards.encode`` span
+    (:mod:`repro_torch.obs`, when on)."""
+    with obs.span("shards.encode"):
+        tokens = np.asarray(tokens, dtype=np.int32)
+        n = tokens.shape[0]
+        pad = (-n) % CHUNK_TOKENS
+        padded = np.concatenate([tokens, np.zeros(pad, np.int32)]) \
+            if pad else tokens
+        return _MAGIC + struct.pack("<q", n) + padded.tobytes()
 
 
 def decode_shard(raw: bytes) -> np.ndarray:

@@ -75,6 +75,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.dist import collectives, fanin
 from repro_torch.dist import sharding as shd
@@ -693,7 +694,15 @@ def _generate_slots(cfg, params, prompts: np.ndarray, max_new: int,
     enqueued on the same stream as the decode steps since, whose own
     syncs have usually retired it, so on the card the wait is near zero;
     on the host it is zero.
+
+    Recorded by :mod:`repro_torch.obs` when on: per request ``serve.queue``
+    (from the call's start to its admission), ``serve.prefill`` and
+    ``serve.admit`` (the wait and ``admit_row``); per decode step
+    ``serve.step``, with children ``serve.step.launch`` (the inputs and
+    ``decode``) and ``serve.step.wait`` (the token's pick and copy to the
+    host); the step's time outside them is the slot table's bookkeeping.
     """
+    t_call = obs.now()
     b, s0 = prompts.shape
     total = int(horizon) if horizon else s0 + max_new
     lens = np.asarray(prompt_lens, np.int32) if prompt_lens is not None \
@@ -741,7 +750,7 @@ def _generate_slots(cfg, params, prompts: np.ndarray, max_new: int,
         next_req += 1
         slc, tok0 = None, np.zeros((1,), np.int32)
         if pre_in:
-            with pre_ctx:
+            with pre_ctx, obs.span("serve.prefill", req=i):
                 p = roles.params_on(pre_mesh, roles.rules)
                 if caps.row_state:
                     # ring-buffer / recurrent state: pad tokens must never
@@ -772,17 +781,19 @@ def _generate_slots(cfg, params, prompts: np.ndarray, max_new: int,
             start_prefetch()
         i, slc, tok0 = inflight.pop(0)
         if roles.dec_in:
-            t0 = time.perf_counter()
+            t0 = obs.now()
             _wait(slc)
-            stats["transfer_wait_s"] += time.perf_counter() - t0
+            stats["transfer_wait_s"] += (obs.now() - t0) * 1e-9
             with roles.dec_ctx():
                 cache = admit(cache, slc, slot)
+            obs.record("serve.admit", t0, obs.now(), req=i)
         stats["admissions"] += 1
         slot_req[slot] = i
         slot_pos[slot] = lens[i]
         slot_tok[slot] = int(tok0[0])
         slot_gen[slot] = _row_generator(seed, i)
         emit(i, slot_tok[slot], slot)  # the prefill token
+        obs.record("serve.queue", t_call, obs.now(), req=i)
         start_prefetch()               # the next shipment, ahead of decode
 
     start_prefetch()
@@ -798,28 +809,30 @@ def _generate_slots(cfg, params, prompts: np.ndarray, max_new: int,
                     admitted = True
         if all(r < 0 for r in slot_req):
             break                      # nothing active, nothing pending
-        nxt = np.zeros((n_slots,), np.int32)
-        if roles.dec_in:
-            with roles.dec_ctx():
-                logits, cache = decode(roles.params_dec(), cache, {
-                    "tokens": _tokens(slot_tok[:, None], dev),
-                    "pos": _tokens(slot_pos, dev)})
-            if temperature > 0:
-                for s_ in range(n_slots):
-                    if slot_req[s_] >= 0:
-                        nxt[s_] = _sample(_full(logits)[s_], temperature,
-                                          slot_gen[s_])
-            else:
-                nxt = _greedy(logits)
-        nxt = _share(nxt, roles.dec_src)
-        stats["decode_steps"] += 1
-        for s_ in range(n_slots):
-            i = slot_req[s_]
-            if i < 0:
-                continue
-            slot_tok[s_] = nxt[s_]
-            slot_pos[s_] += 1
-            emit(i, nxt[s_], s_)
+        with obs.span("serve.step"):
+            nxt = np.zeros((n_slots,), np.int32)
+            if roles.dec_in:
+                with obs.span("serve.step.launch"), roles.dec_ctx():
+                    logits, cache = decode(roles.params_dec(), cache, {
+                        "tokens": _tokens(slot_tok[:, None], dev),
+                        "pos": _tokens(slot_pos, dev)})
+                with obs.span("serve.step.wait"):
+                    if temperature > 0:
+                        for s_ in range(n_slots):
+                            if slot_req[s_] >= 0:
+                                nxt[s_] = _sample(_full(logits)[s_],
+                                                  temperature, slot_gen[s_])
+                    else:
+                        nxt = _greedy(logits)
+            nxt = _share(nxt, roles.dec_src)
+            stats["decode_steps"] += 1
+            for s_ in range(n_slots):
+                i = slot_req[s_]
+                if i < 0:
+                    continue
+                slot_tok[s_] = nxt[s_]
+                slot_pos[s_] += 1
+                emit(i, nxt[s_], s_)
 
     assert all(len(ts) == max_new for ts in out_tokens)
     _generate_slots.last_stats = stats     # launcher reporting hook

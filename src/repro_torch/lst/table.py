@@ -24,6 +24,7 @@ import threading
 import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
+from repro_torch import obs
 from repro_torch.lst.files import DataFile, ManifestFile, Snapshot, TableMetadata
 from repro_torch.lst.storage import ObjectStore
 
@@ -168,31 +169,38 @@ class LogStructuredTable:
         self.store.put(path, self.meta.serialize())
 
     def _try_commit(self, txn: "Transaction") -> Snapshot:
-        with self._lock:
-            if self.meta.version != txn.base_version:
-                self.cas_retries += 1       # stale base: CAS retry happened
-                self._validate(txn)
-            # rebase onto current state
-            base = self.current_files()
-            removed_paths = {f.path for f in txn.removed}
-            if txn.operation in ("replace", "delete"):
-                missing = removed_paths - {f.path for f in base}
-                if missing:
-                    raise CommitConflict(
-                        f"files vanished under rewrite: {sorted(missing)[:3]}",
-                        kind="stale_files")
-            new_files = tuple(f for f in base if f.path not in removed_paths
-                              ) + tuple(txn.added)
+        """Recorded (:mod:`repro_torch.obs`, when on) as ``lst.commit``
+        over ``lst.commit.rebase`` (current files, conflict check, the new
+        file tuple), ``lst.commit.manifest`` (the manifest and its list)
+        and ``lst.commit.metadata`` (the table's metadata)."""
+        with obs.span("lst.commit"), self._lock:
+            with obs.span("lst.commit.rebase"):
+                if self.meta.version != txn.base_version:
+                    self.cas_retries += 1   # stale base: CAS retry happened
+                    self._validate(txn)
+                # rebase onto current state
+                base = self.current_files()
+                removed_paths = {f.path for f in txn.removed}
+                if txn.operation in ("replace", "delete"):
+                    missing = removed_paths - {f.path for f in base}
+                    if missing:
+                        raise CommitConflict(
+                            "files vanished under rewrite: "
+                            f"{sorted(missing)[:3]}", kind="stale_files")
+                new_files = tuple(f for f in base
+                                  if f.path not in removed_paths
+                                  ) + tuple(txn.added)
             sid = self._next_snapshot_id()
             seq = (self.meta.snapshots[-1].sequence_number + 1
                    if self.meta.snapshots else 1)
-            manifest = ManifestFile(
-                f"{self.table_id}/metadata/manifest-{sid}.json",
-                tuple(txn.added), tuple(sorted(removed_paths)))
-            self.store.put(manifest.path, manifest.serialize())
-            mlist_path = f"{self.table_id}/metadata/snap-{sid}.json"
-            self.store.put(mlist_path, json.dumps(
-                {"manifests": [manifest.path]}).encode())
+            with obs.span("lst.commit.manifest"):
+                manifest = ManifestFile(
+                    f"{self.table_id}/metadata/manifest-{sid}.json",
+                    tuple(txn.added), tuple(sorted(removed_paths)))
+                self.store.put(manifest.path, manifest.serialize())
+                mlist_path = f"{self.table_id}/metadata/snap-{sid}.json"
+                self.store.put(mlist_path, json.dumps(
+                    {"manifests": [manifest.path]}).encode())
             snap = Snapshot(
                 snapshot_id=sid, parent_id=self.meta.current_snapshot_id,
                 sequence_number=seq, timestamp=self.now_fn(),
@@ -205,7 +213,8 @@ class LogStructuredTable:
             self.meta.version += 1
             self.meta.last_write_at = snap.timestamp
             self._files[sid] = new_files
-            self._persist_metadata()
+            with obs.span("lst.commit.metadata"):
+                self._persist_metadata()
             return snap
 
     def _validate(self, txn: "Transaction") -> None:

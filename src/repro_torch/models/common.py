@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.dist import collectives
 from repro_torch.dist.sharding import constrain, is_dtensor
 
@@ -377,6 +378,19 @@ def _attention_on_shards(q, k, v, **kw):
     return fn(q, k, v)
 
 
+@functools.lru_cache(maxsize=256)
+def attention_pairs(sq: int, sk: int, causal: bool, window: int,
+                    q_offset: int = 0) -> int:
+    """The (query, key) pairs of one row and head that
+    :func:`blockwise_attention`'s mask keeps: query ``i`` at position
+    ``q_offset + i`` sees key ``j < sk`` where ``j <= q_offset + i``
+    (causal) and ``q_offset + i - j < window`` (a window)."""
+    p = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(p, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(p - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
 def blockwise_attention(q, k, v, *, causal=True, window=0,
                         q_offset=0, k_positions=None,
                         block_q=1024, block_k=1024):
@@ -389,7 +403,11 @@ def blockwise_attention(q, k, v, *, causal=True, window=0,
 
     Every (q tile, kv tile) pair is computed, masked or not, in the
     reference's order: the online softmax over kv tiles inside each q
-    tile, f32 scores, ``NEG_INF`` for masked entries.
+    tile, f32 scores, ``NEG_INF`` for masked entries. With recording on
+    (:mod:`repro_torch.obs`) and the default positions, each call counts
+    the query-key pairs its tiles compute, ``attn.pairs_computed``, and
+    those the mask keeps, ``attn.pairs_needed`` (from shapes, on the
+    host; counted here, outside the ``repeated`` body, once a call).
 
     A length longer than its block and not a multiple of it, which the
     reference refuses (an ``assert``), pads its last tile: padded keys
@@ -409,9 +427,13 @@ def blockwise_attention(q, k, v, *, causal=True, window=0,
     bq = min(block_q, sq)
     bk = min(block_k, sk)
     dev = q.device
+    pad_q, pad_k = (-sq) % bq, (-sk) % bk
+    if k_positions is None and isinstance(q_offset, int) and obs.on():
+        obs.count("attn.pairs_computed", b * h * (sq + pad_q) * (sk + pad_k))
+        obs.count("attn.pairs_needed",
+                  b * h * attention_pairs(sq, sk, causal, window, q_offset))
     if k_positions is None:
         k_positions = torch.arange(sk, dtype=torch.int32, device=dev)
-    pad_q, pad_k = (-sq) % bq, (-sk) % bk
     if pad_k:
         k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
         v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
