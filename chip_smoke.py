@@ -2287,7 +2287,10 @@ class ServeProbe:
     entered: each prefill's and decode's wall (host clock ending in a
     synchronize, as the engine's own argmax syncs every step), the first
     prefill's and decode's logits, every logit finite, the paged store's
-    gather and scatter walls, and one decode call under the profiler."""
+    gather and scatter walls, and one decode call under the profiler.
+    The slot engine's decode is timed where the engine steps it
+    (``serve._SlotStep``): on one card its steps replay a CUDA graph,
+    which calls no decode function, and its capture allows no sync."""
 
     def __init__(self, label: str, profile_call=None, keep_all=False):
         self.label, self.profile_call = label, profile_call
@@ -2298,6 +2301,7 @@ class ServeProbe:
         self.first_decode_tokens = None   # the first decode call's input
         self.t0 = self.ttft_s = None
         self.finite, self.n_decode = True, 0
+        self.in_step = False              # inside a slot engine's step
 
     def _sync(self, out):
         leaf = tree_leaves(out)[0]
@@ -2322,11 +2326,27 @@ class ServeProbe:
             return out
         return wrapped
 
+    def _decode(self, timed, tokens, args):
+        """One decode step through ``timed``; ``tokens()`` its input
+        tokens on the host."""
+        self.n_decode += 1
+        if self.first_decode_tokens is None:
+            self.first_decode_tokens = tokens()
+        if self.n_decode == self.profile_call:
+            out = []
+            profile_step(lambda: out.append(timed(*args)),
+                         label=f"{self.label} decode step "
+                               f"{self.profile_call}")
+            self.decode_s.pop()      # the profiled call's wall
+            return out[0]
+        return timed(*args)
+
     def __enter__(self):
         self.real = (step_lib.make_prefill_step, step_lib.make_decode_step,
                      model_registry.PagedStateStore.gather_dense,
-                     model_registry.PagedStateStore.scatter_dense)
-        real_pre, real_dec, real_g, real_s = self.real
+                     model_registry.PagedStateStore.scatter_dense,
+                     serve._SlotStep.__call__)
+        real_pre, real_dec, real_g, real_s, real_step = self.real
         probe = self
 
         def first_token(out):
@@ -2338,26 +2358,30 @@ class ServeProbe:
                                 probe.prefill_logits, first_token)
 
         def make_decode(*a, **kw):
-            timed = probe._timed(real_dec(*a, **kw), probe.decode_s,
-                                 probe.decode_logits)
+            real = real_dec(*a, **kw)
+            timed = probe._timed(real, probe.decode_s, probe.decode_logits)
 
             def decode(*args):
-                probe.n_decode += 1
-                if probe.first_decode_tokens is None:
-                    probe.first_decode_tokens = serve._full(
-                        args[-1]["tokens"]).cpu().numpy()
-                if probe.n_decode == probe.profile_call:
-                    out = []
-                    profile_step(lambda: out.append(timed(*args)),
-                                 label=f"{probe.label} decode step "
-                                       f"{probe.profile_call}")
-                    probe.decode_s.pop()      # the profiled call's wall
-                    return out[0]
-                return timed(*args)
+                if probe.in_step:     # timed by the slot step around it
+                    return real(*args)
+                return probe._decode(timed, lambda: serve._full(
+                    args[-1]["tokens"]).cpu().numpy(), args)
             return decode
+
+        timed_step = self._timed(real_step, self.decode_s,
+                                 self.decode_logits)
+
+        def slot_step(step, tok, pos):
+            probe.in_step = True
+            try:
+                return probe._decode(timed_step, lambda: tok[:, None].copy(),
+                                     (step, tok, pos))
+            finally:
+                probe.in_step = False
 
         step_lib.make_prefill_step = make_prefill
         step_lib.make_decode_step = make_decode
+        serve._SlotStep.__call__ = slot_step
         store = model_registry.PagedStateStore
         store.gather_dense = lambda obj, *a: self._timed(
             lambda *x: real_g(obj, *x), self.gather_s, None)(*a)
@@ -2369,7 +2393,8 @@ class ServeProbe:
     def __exit__(self, *exc):
         (step_lib.make_prefill_step, step_lib.make_decode_step,
          model_registry.PagedStateStore.gather_dense,
-         model_registry.PagedStateStore.scatter_dense) = self.real
+         model_registry.PagedStateStore.scatter_dense,
+         serve._SlotStep.__call__) = self.real
 
 
 def med_ms(walls) -> float:

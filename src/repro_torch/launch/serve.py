@@ -666,6 +666,86 @@ def make_slot_admit_step(cfg, slots: int, total: int, transfer: str,
     return admit
 
 
+def _step_mode(dec_mesh, dev: torch.device) -> str:
+    """How the slot engine runs its decode step: ``"rebind"`` on ranks,
+    where the step's collectives and DTensors stay eager; else
+    ``"graph"`` on a CUDA device and ``"static"`` elsewhere."""
+    if _ranked(dec_mesh):
+        return "rebind"
+    return "graph" if dev.type == "cuda" else "static"
+
+
+class _SlotStep:
+    """The slot engine's decode step over its slot table.
+
+    ``mode`` is :func:`_step_mode`'s. Under ``"rebind"`` each step
+    builds its inputs and rebinds the table to the cache ``decode``
+    returns. Otherwise the table stays where it was allocated: each step
+    writes the slots' tokens and positions into a buffer of its own, runs
+    ``decode`` and copies every leaf of the returned cache back into the
+    table, and so does admission. Under ``"graph"`` the second step
+    records the first's kernels as one ``torch.cuda.CUDAGraph`` (the
+    first is the warm-up capture asks for) and every step from the
+    second on replays it; the graph and its memory pool go with this
+    object. A step returns the logits, which the graph's replays
+    overwrite.
+    """
+
+    def __init__(self, decode, params, cache, n_slots: int, dev, mode: str):
+        self.decode, self.params, self.cache = decode, params, cache
+        self.dev, self.mode = dev, mode
+        # the tokens and positions, one copy from the host a step
+        self.inputs = torch.zeros((2, n_slots), dtype=torch.int32,
+                                  device=dev)
+        self.batch = {"tokens": self.inputs[0, :, None],
+                      "pos": self.inputs[1]}
+        self.cuda_graph = self.logits = None
+        self.steps = self.replays = 0
+
+    def _copy_back(self, new) -> None:
+        for c, n in zip(tree_leaves(self.cache), tree_leaves(new)):
+            if n is not c:
+                c.copy_(n)
+
+    def _run(self):
+        logits, new = self.decode(self.params, self.cache, self.batch)
+        self._copy_back(new)
+        return logits
+
+    def _capture(self) -> None:
+        g = torch.cuda.CUDAGraph()
+        with obs.span("serve.graph.capture"), torch.cuda.graph(g):
+            self.logits = self._run()
+        obs.count("serve.graph.captures")
+        self.cuda_graph = g
+
+    def __call__(self, tok: np.ndarray, pos: np.ndarray) -> torch.Tensor:
+        self.steps += 1
+        if self.mode == "rebind":
+            logits, self.cache = self.decode(self.params, self.cache, {
+                "tokens": _tokens(tok[:, None], self.dev),
+                "pos": _tokens(pos, self.dev)})
+            return logits
+        self.inputs.copy_(torch.from_numpy(np.stack([tok, pos])))
+        if self.mode == "graph" and self.cuda_graph is None \
+                and self.steps > 1:
+            self._capture()
+        if self.cuda_graph is None:
+            return self._run()
+        self.cuda_graph.replay()
+        self.replays += 1
+        obs.count("serve.graph.replays")
+        return self.logits
+
+    def admit(self, admit, slc, slot: int) -> None:
+        """Admit ``slc`` into row ``slot`` through ``admit``."""
+        new = admit(self.cache, slc, slot)
+        if self.mode == "rebind":
+            self.cache = new
+        else:
+            self._copy_back(new)
+
+
 def _generate_slots(cfg, params, prompts: np.ndarray, max_new: int,
                     temperature: float, seed: int,
                     prompt_lens: Optional[np.ndarray],
@@ -688,19 +768,28 @@ def _generate_slots(cfg, params, prompts: np.ndarray, max_new: int,
     prefill and shipment are issued at admission time, before the decode
     steps that follow (the reference's double buffer).
 
+    The decode step is a :class:`_SlotStep`. Where one process decodes on
+    a CUDA device, the call's first step runs eagerly and every later one
+    replays a CUDA graph of it, captured at the second step and freed
+    when the call returns; nothing outlives the call.
+
     ``_generate_slots.last_stats`` holds ``admissions``,
-    ``decode_steps`` and ``transfer_wait_s``: the host's wait, at
-    admission, for the shipment's tensors to be ready. The prefill was
-    enqueued on the same stream as the decode steps since, whose own
-    syncs have usually retired it, so on the card the wait is near zero;
-    on the host it is zero.
+    ``decode_steps``, ``graph_steps`` (the steps that replayed the graph)
+    and ``transfer_wait_s``: the host's wait, at admission, for the
+    shipment's tensors to be ready. The prefill was enqueued on the same
+    stream as the decode steps since, whose own syncs have usually
+    retired it, so on the card the wait is near zero; on the host it is
+    zero.
 
     Recorded by :mod:`repro_torch.obs` when on: per request ``serve.queue``
     (from the call's start to its admission), ``serve.prefill`` and
     ``serve.admit`` (the wait and ``admit_row``); per decode step
     ``serve.step``, with children ``serve.step.launch`` (the inputs and
-    ``decode``) and ``serve.step.wait`` (the token's pick and copy to the
-    host); the step's time outside them is the slot table's bookkeeping.
+    ``decode``, or the graph's replay) and ``serve.step.wait`` (the
+    token's pick and copy to the host); the step's time outside them is
+    the slot table's bookkeeping. The capture is a ``serve.graph.capture``
+    span, and the counters ``serve.graph.captures`` and
+    ``serve.graph.replays`` count captures and replays.
     """
     t_call = obs.now()
     b, s0 = prompts.shape
@@ -730,6 +819,8 @@ def _generate_slots(cfg, params, prompts: np.ndarray, max_new: int,
         kv_storage)
     cache = roles.store_state(registry.state_store(
         cfg, n_slots, total, kv_storage=kv_storage))
+    step = _SlotStep(decode, roles.params_dec(), cache, n_slots, dev,
+                     _step_mode(roles.dec_mesh, dev)) if roles.dec_in else None
 
     # ---- host-side slot table + the prefetched shipment ----------------
     out_tokens = [[] for _ in range(b)]
@@ -739,7 +830,8 @@ def _generate_slots(cfg, params, prompts: np.ndarray, max_new: int,
     slot_gen: list = [None] * n_slots
     next_req = 0
     inflight: list = []                # at most one prefetched shipment
-    stats = {"admissions": 0, "transfer_wait_s": 0.0, "decode_steps": 0}
+    stats = {"admissions": 0, "transfer_wait_s": 0.0, "decode_steps": 0,
+             "graph_steps": 0}
 
     def start_prefetch():
         """Prefill the next pending request, grow its slice and ship it."""
@@ -776,7 +868,6 @@ def _generate_slots(cfg, params, prompts: np.ndarray, max_new: int,
             slot_req[slot] = -1        # free the slot for reuse
 
     def admit_next(slot):
-        nonlocal cache
         if not inflight:
             start_prefetch()
         i, slc, tok0 = inflight.pop(0)
@@ -785,7 +876,7 @@ def _generate_slots(cfg, params, prompts: np.ndarray, max_new: int,
             _wait(slc)
             stats["transfer_wait_s"] += (obs.now() - t0) * 1e-9
             with roles.dec_ctx():
-                cache = admit(cache, slc, slot)
+                step.admit(admit, slc, slot)
             obs.record("serve.admit", t0, obs.now(), req=i)
         stats["admissions"] += 1
         slot_req[slot] = i
@@ -813,9 +904,7 @@ def _generate_slots(cfg, params, prompts: np.ndarray, max_new: int,
             nxt = np.zeros((n_slots,), np.int32)
             if roles.dec_in:
                 with obs.span("serve.step.launch"), roles.dec_ctx():
-                    logits, cache = decode(roles.params_dec(), cache, {
-                        "tokens": _tokens(slot_tok[:, None], dev),
-                        "pos": _tokens(slot_pos, dev)})
+                    logits = step(slot_tok, slot_pos)
                 with obs.span("serve.step.wait"):
                     if temperature > 0:
                         for s_ in range(n_slots):
@@ -835,6 +924,8 @@ def _generate_slots(cfg, params, prompts: np.ndarray, max_new: int,
                 emit(i, nxt[s_], s_)
 
     assert all(len(ts) == max_new for ts in out_tokens)
+    if step is not None:
+        stats["graph_steps"] = step.replays
     _generate_slots.last_stats = stats     # launcher reporting hook
     return np.asarray(out_tokens, np.int32)
 
