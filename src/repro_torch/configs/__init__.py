@@ -10,13 +10,16 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional, Tuple
+import math
+from typing import ClassVar, Optional, Tuple
 
 FAMILIES = ("dense", "moe", "mla", "hybrid", "ssm_xlstm", "encoder_audio", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
+    families: ClassVar[Tuple[str, ...]] = FAMILIES
+
     name: str
     family: str                      # one of FAMILIES
     n_layers: int
@@ -64,7 +67,7 @@ class ModelConfig:
                                      # halve saved activations per unit)
 
     def __post_init__(self):
-        if self.family not in FAMILIES:
+        if self.family not in self.families:
             raise ValueError(f"unknown family {self.family!r}")
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
@@ -96,7 +99,98 @@ class ModelConfig:
         return self.causal
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention scale for a context stretched ``factor`` times
+    (DeepSeek-V2's ``yarn_get_mscale``)."""
+    if factor <= 1:
+        return 1.0
+    return 0.1 * mscale * math.log(factor) + 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class LatentMoEConfig(ModelConfig):
+    """DeepSeek-V2's block (family ``"mla_moe"``): latent attention (the
+    MLA fields above; ``q_lora_rank=0`` projects the query directly, with
+    no query norm), ``first_dense`` leading layers with a dense SwiGLU of
+    width ``d_ff``, then MoE layers of ``n_experts`` routed experts of
+    width ``d_ff_expert`` and ``n_shared_experts`` shared ones, run as one
+    SwiGLU of width ``n_shared_experts * d_ff_expert`` on every token.
+
+    The router scores by ``router_score`` ("softmax", in f32) and takes
+    the ``top_k`` best (greedy); their scores are the gates, divided by
+    their sum if ``norm_topk`` and otherwise multiplied by
+    ``routed_scale``. No token is dropped.
+
+    ``yarn_factor > 1`` turns on YaRN rope scaling: frequencies
+    interpolated ``yarn_factor`` times below a ramp between the dims that
+    turn ``yarn_beta_fast`` and ``yarn_beta_slow`` times over
+    ``yarn_original_len`` positions, and the softmax scale multiplied by
+    ``yarn_mscale(yarn_factor, yarn_mscale_all_dim) ** 2``. YaRN's
+    multiplier of cos and sin, ``yarn_mscale(yarn_factor, yarn_mscale) /
+    yarn_mscale(yarn_factor, yarn_mscale_all_dim)``, must be 1 (equal
+    ``yarn_mscale`` and ``yarn_mscale_all_dim``, as DeepSeek-V2 sets them).
+
+    A family of the port alone: the JAX package has no counterpart, so it
+    is not in ``FAMILIES``.
+    """
+    families: ClassVar[Tuple[str, ...]] = ("mla_moe",)
+
+    n_shared_experts: int = 0
+    first_dense: int = 0
+    router_score: str = "softmax"
+    norm_topk: bool = False
+    routed_scale: float = 1.0
+    yarn_factor: float = 1.0
+    yarn_original_len: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.router_score != "softmax":
+            raise ValueError(f"unknown router_score {self.router_score!r}")
+        if not 0 <= self.first_dense < self.n_layers:
+            raise ValueError(f"first_dense {self.first_dense} must leave "
+                             f"MoE layers among {self.n_layers}")
+        if yarn_mscale(self.yarn_factor, self.yarn_mscale) \
+                != yarn_mscale(self.yarn_factor, self.yarn_mscale_all_dim):
+            raise ValueError("YaRN's cos/sin multiplier must be 1: "
+                             "yarn_mscale == yarn_mscale_all_dim")
+
+    @property
+    def d_ff_shared(self) -> int:
+        return self.n_shared_experts * self.d_ff_expert
+
+    @property
+    def softmax_scale(self) -> float:
+        """The attention's softmax scale: 1/sqrt(query head dim), times
+        YaRN's ``mscale_all_dim`` factor squared."""
+        m = yarn_mscale(self.yarn_factor, self.yarn_mscale_all_dim) \
+            if self.yarn_mscale_all_dim else 1.0
+        return (self.nope_head_dim + self.rope_head_dim) ** -0.5 * m * m
+
+
+def _latent_moe_count(c: LatentMoEConfig, active_only: bool) -> int:
+    """Every leaf of the ``mla_moe`` tree, norm scales included."""
+    d, h = c.d_model, c.n_heads
+    qk = c.nope_head_dim + c.rope_head_dim
+    attn = (d * c.q_lora_rank + c.q_lora_rank + c.q_lora_rank * h * qk
+            if c.q_lora_rank else d * h * qk)
+    attn += d * (c.kv_lora_rank + c.rope_head_dim) + c.kv_lora_rank
+    attn += c.kv_lora_rank * h * (c.nope_head_dim + c.v_head_dim)
+    attn += h * c.v_head_dim * d
+    routed = c.top_k if active_only else c.n_experts
+    moe = d * c.n_experts + 3 * d * (routed * c.d_ff_expert + c.d_ff_shared)
+    emb = c.vocab * d * (1 if c.tie_embeddings else 2) + d
+    return emb + c.n_layers * (attn + 2 * d) + c.first_dense * 3 * d * c.d_ff \
+        + (c.n_layers - c.first_dense) * moe
+
+
 def _param_count(c: ModelConfig, active_only: bool) -> int:
+    if c.family == "mla_moe":
+        return _latent_moe_count(c, active_only)
     d = c.d_model
     emb = c.vocab * d * (1 if c.tie_embeddings else 2)
     per_layer = 0
@@ -153,11 +247,19 @@ _REGISTRY = {
 
 ARCH_IDS: Tuple[str, ...] = tuple(k for k in _REGISTRY if k != "paper-lm-100m")
 
+# configurations of the port's own families, outside ARCH_IDS (the JAX
+# package has no counterpart)
+_PORT_REGISTRY = {
+    "deepseek-v2-lite": "repro_torch.configs.deepseek_v2_lite",
+}
+
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id not in _REGISTRY:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}")
-    return importlib.import_module(_REGISTRY[arch_id]).CONFIG
+    mod = _REGISTRY.get(arch_id) or _PORT_REGISTRY.get(arch_id)
+    if mod is None:
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
+                       f"{sorted(_REGISTRY) + sorted(_PORT_REGISTRY)}")
+    return importlib.import_module(mod).CONFIG
 
 
 def smoke_config(arch_id: str, *, n_layers: int = 2, vocab: int = 256) -> ModelConfig:
@@ -181,4 +283,17 @@ def smoke_config(arch_id: str, *, n_layers: int = 2, vocab: int = 256) -> ModelC
         kw.update(mlstm_every=c.mlstm_every, d_ff=0)
     if c.family == "vlm":
         kw.update(n_vision_tokens=4)
+    if c.family == "mla_moe":
+        # every mechanism kept: the leading dense layers, two MoE layers
+        # or more, shared experts, the router's settings, YaRN (whose
+        # ramp still falls inside 8 rope dims) and a direct query
+        base = {f.name for f in dataclasses.fields(ModelConfig)}
+        kw.update({f.name: getattr(c, f.name)
+                   for f in dataclasses.fields(c) if f.name not in base})
+        kw.update(n_layers=max(n_layers, c.first_dense + 2),
+                  q_lora_rank=min(c.q_lora_rank, 32), kv_lora_rank=16,
+                  rope_head_dim=8, nope_head_dim=8, v_head_dim=16,
+                  n_experts=8, top_k=3, d_ff_expert=16,
+                  rope_theta=c.rope_theta, norm_eps=c.norm_eps)
+        return LatentMoEConfig(**kw)
     return ModelConfig(**kw)

@@ -21,6 +21,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import ModelConfig
 from repro_torch.dist import collectives
 from repro_torch.dist.sharding import constrain, is_dtensor, mesh_axis_size
@@ -242,43 +243,76 @@ def gqa_cache_axes():
 # ---------------------------------------------------------------------------
 
 def mla_specs(cfg: ModelConfig) -> Dict[str, Spec]:
+    """MLA's leaves; ``q_lora_rank=0`` projects the query directly
+    (``wq``, no ``q_norm``: DeepSeek-V2-Lite)."""
     d, h = cfg.d_model, cfg.n_heads
     rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
-    return {
-        "wq_a": Spec((d, rq), ("embed", "q_lora")),
-        "wq_b": Spec((rq, h, dn + dr), ("q_lora", "heads", "head_dim")),
+    if rq == 0:
+        q = {"wq": Spec((d, h, dn + dr), ("embed", "heads", "head_dim"))}
+    else:
+        q = {"wq_a": Spec((d, rq), ("embed", "q_lora")),
+             "wq_b": Spec((rq, h, dn + dr), ("q_lora", "heads", "head_dim"))}
+    s = {
+        **q,
         "wkv_a": Spec((d, rkv + dr), ("embed", "kv_lora")),
         "wk_b": Spec((rkv, h, dn), ("kv_lora", "heads", "head_dim")),
         "wv_b": Spec((rkv, h, dv), ("kv_lora", "heads", "head_dim")),
         "wo": Spec((h, dv, d), ("heads", "head_dim", "embed")),
-        "q_norm": Spec((rq,), ("q_lora",), init="ones"),
-        "kv_norm": Spec((rkv,), ("kv_lora",), init="ones"),
     }
+    if rq:
+        s["q_norm"] = Spec((rq,), ("q_lora",), init="ones")
+    s["kv_norm"] = Spec((rkv,), ("kv_lora",), init="ones")
+    return s
+
+
+def _mla_rope(cfg, x, positions):
+    """The rope of MLA's rope dims, at YaRN's frequencies where the config
+    asks for YaRN (``yarn_factor`` > 1)."""
+    if getattr(cfg, "yarn_factor", 1.0) <= 1.0:
+        return apply_rope(x, positions, cfg.rope_theta)
+    freqs = common.yarn_freqs(
+        cfg.rope_head_dim, cfg.rope_theta, cfg.yarn_factor,
+        cfg.yarn_original_len, cfg.yarn_beta_fast, cfg.yarn_beta_slow,
+        x.device)
+    return apply_rope(x, positions, cfg.rope_theta, freqs)
 
 
 def _mla_qk(cfg, p, x, positions):
     """Project to per-head q (nope|rope) and latent kv. x:(B,S,d)."""
     dn = cfg.nope_head_dim
-    cq = common.rms_norm(einsum("bsd,dr->bsr", x, p["wq_a"]), p["q_norm"],
-                         cfg.norm_eps)
-    q = einsum("bsr,rhk->bshk", cq, p["wq_b"])              # (B,S,H,dn+dr)
+    if cfg.q_lora_rank:
+        cq = common.rms_norm(einsum("bsd,dr->bsr", x, p["wq_a"]),
+                             p["q_norm"], cfg.norm_eps)
+        q = einsum("bsr,rhk->bshk", cq, p["wq_b"])          # (B,S,H,dn+dr)
+    else:
+        q = einsum("bsd,dhk->bshk", x, p["wq"])
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q_rope = _mla_rope(cfg, q_rope, positions)
     kv = einsum("bsd,dr->bsr", x, p["wkv_a"])               # (B,S,rkv+dr)
     latent = common.rms_norm(kv[..., :cfg.kv_lora_rank], p["kv_norm"],
                              cfg.norm_eps)
-    k_rope = apply_rope(kv[..., None, cfg.kv_lora_rank:], positions,
-                        cfg.rope_theta)[..., 0, :]          # (B,S,dr) shared
+    k_rope = _mla_rope(cfg, kv[..., None, cfg.kv_lora_rank:],
+                       positions)[..., 0, :]                # (B,S,dr) shared
     return torch.cat([q_nope, q_rope], -1), latent, k_rope
 
 
 def _mla_expand(cfg, p, latent, k_rope):
-    """Expand latent into per-head K (nope|rope-shared) and V."""
-    k_nope = einsum("bsr,rhk->bshk", latent, p["wk_b"])
-    v = einsum("bsr,rhk->bshk", latent, p["wv_b"])
-    kr = k_rope[:, :, None, :].expand(*k_nope.shape[:3], cfg.rope_head_dim)
-    return torch.cat([k_nope, kr], -1), v
+    """Expand latent into per-head K (nope|rope-shared) and V, (B,S,H,.)
+    views of head-major (B,H,S,.) memory: the layout attention's
+    per-head products read, so neither K nor V is copied again there."""
+    with obs.span("mla.expand"):
+        k_nope = einsum("bsr,rhk->bhsk", latent, p["wk_b"])
+        v = einsum("bsr,rhk->bhsk", latent, p["wv_b"])
+        kr = k_rope[:, None].expand(*k_nope.shape[:3], cfg.rope_head_dim)
+        k = torch.cat([k_nope, kr], -1)
+        return k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _mla_scale(cfg):
+    """The softmax scale a config sets (YaRN's), else None: the
+    attention's own 1/sqrt(head dim)."""
+    return getattr(cfg, "softmax_scale", None)
 
 
 def mla_apply(cfg: ModelConfig, p, x, mode, cache, pos, cache_len_total):
@@ -323,16 +357,23 @@ def mla_apply(cfg: ModelConfig, p, x, mode, cache, pos, cache_len_total):
         k, v = _mla_expand(cfg, p, lat_att, kr_att[..., 0, :])
         kpos = cache_slot_positions(cache_len_total + 1, lat_cache.shape[1],
                                     pos_t)
-        out = decode_attention(q, k, v, kpos, pos_t)
+        out = decode_attention(q, k, v, kpos, pos_t, scale=_mla_scale(cfg))
         new_cache = {"latent": lat_cache, "k_rope": kr_cache}
         if storage == "int8":
             new_cache["latent_scale"] = lat_scale
             new_cache["k_rope_scale"] = kr_scale
+        if obs.on():
+            # from shapes, once a pass (and once at a graph's capture):
+            # the resident cache read, the per-head K and V built from it
+            obs.count("mla.decode.latent_bytes",
+                      sum(t.nbytes for t in new_cache.values()))
+            obs.count("mla.decode.kv_bytes", k.nbytes + v.nbytes)
     else:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
         q, latent, k_rope = _mla_qk(cfg, p, x, positions)
         k, v = _mla_expand(cfg, p, latent, k_rope)
-        out = blockwise_attention(q, k, v, causal=cfg.causal)
+        out = blockwise_attention(q, k, v, causal=cfg.causal,
+                                  scale=_mla_scale(cfg))
         new_cache = None
         if mode == "prefill":
             new_cache = {"latent": latent.to(common.COMPUTE_DTYPE),

@@ -18,6 +18,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import math
 from typing import Any, Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -298,10 +299,38 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+def yarn_freqs(head_dim: int, theta: float, factor: float,
+               original_len: int, beta_fast: float, beta_slow: float,
+               device=None) -> torch.Tensor:
+    """YaRN's rope frequencies, as DeepSeek-V2's ``modeling_deepseek.py``
+    computes them: each dim's frequency, divided by ``factor`` where it
+    turns fewer than ``beta_slow`` times over ``original_len`` positions,
+    kept where it turns more than ``beta_fast`` times, and a linear ramp
+    between (``yarn_find_correction_range``, ``yarn_linear_ramp_mask``)."""
+    def dim_of(turns):
+        return head_dim * math.log(original_len / (turns * 2 * math.pi)) \
+            / (2 * math.log(theta))
+    low = max(math.floor(dim_of(beta_fast)), 0)
+    high = min(math.ceil(dim_of(beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    extra = rope_freqs(head_dim, theta, device)
+    inter = 1.0 / (factor * theta ** (torch.arange(
+        0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
+    ramp = torch.clamp((torch.arange(head_dim // 2, dtype=torch.float32,
+                                     device=device) - low) / (high - low),
+                       0, 1)
+    keep = 1.0 - ramp
+    return inter * (1 - keep) + extra * keep
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               freqs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S).
+    ``freqs`` (D/2,) replaces the plain ones of ``theta`` (YaRN's)."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                  # (D/2,)
+    if freqs is None:
+        freqs = rope_freqs(d, theta, x.device)              # (D/2,)
     ang = positions.float()[..., None] * freqs              # (..., S, D/2)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x[..., : d // 2], x[..., d // 2:]
@@ -393,10 +422,11 @@ def attention_pairs(sq: int, sk: int, causal: bool, window: int,
 
 def blockwise_attention(q, k, v, *, causal=True, window=0,
                         q_offset=0, k_positions=None,
-                        block_q=1024, block_k=1024):
+                        block_q=1024, block_k=1024, scale=None):
     """Memory-efficient attention.
 
     q: (B, Sq, H, D); k,v: (B, Sk, Hkv, D). Returns (B, Sq, H, D).
+    ``scale`` multiplies the scores (None: 1/sqrt(D)).
     ``q_offset``: absolute position of q[0] (for decode/prefill continuation).
     ``k_positions``: optional (Sk,) absolute positions of cache slots
       (ring buffers); -1 marks invalid slots. Defaults to arange(Sk).
@@ -420,10 +450,12 @@ def blockwise_attention(q, k, v, *, causal=True, window=0,
     if is_dtensor(q):
         return _attention_on_shards(
             q, k, v, causal=causal, window=window, q_offset=q_offset,
-            k_positions=k_positions, block_q=block_q, block_k=block_k)
+            k_positions=k_positions, block_q=block_q, block_k=block_k,
+            scale=scale)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    scale = 1.0 / np.sqrt(d)
+    if scale is None:
+        scale = 1.0 / np.sqrt(d)
     bq = min(block_q, sq)
     bk = min(block_k, sk)
     dev = q.device
@@ -480,7 +512,7 @@ def as_positions(pos, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(pos, np.int32), device=device)
 
 
-def _decode_on_shards(q, k, v, k_positions, pos, k_scale, v_scale):
+def _decode_on_shards(q, k, v, k_positions, pos, k_scale, v_scale, scale):
     """``decode_attention`` of DTensors, shard by shard: each rank runs it
     on its own batch rows with every head and cache slot (the caches
     arrive gathered to that layout), as XLA's partitioner does; a per-row
@@ -506,13 +538,14 @@ def _decode_on_shards(q, k, v, k_positions, pos, k_scale, v_scale):
     p = as_positions(pos.full_tensor() if is_dtensor(pos) else pos, q.device)
     p = p[rows] if p.ndim == 1 else p
     out = decode_attention(q.to_local(), local(k), local(v), kp, p,
-                           local(k_scale), local(v_scale))
+                           local(k_scale), local(v_scale), scale)
     return collectives.from_local(out, q)
 
 
 def decode_attention(q, k_cache, v_cache, k_positions, pos,
-                     k_scale=None, v_scale=None):
+                     k_scale=None, v_scale=None, scale=None):
     """Single-token attention against a cache. q:(B,1,H,D), caches (B,S,Hkv,D).
+    ``scale`` multiplies the scores (None: 1/sqrt(D)).
 
     ``k_positions``: (S,) or per-row (B,S) absolute slot positions (-1
     invalid); ``pos``: scalar or per-row (B,) current position. Per-row
@@ -526,7 +559,7 @@ def decode_attention(q, k_cache, v_cache, k_positions, pos,
     """
     if is_dtensor(q):
         return _decode_on_shards(q, k_cache, v_cache, k_positions, pos,
-                                 k_scale, v_scale)
+                                 k_scale, v_scale, scale)
     if k_scale is not None:
         k_cache = collectives.dequantize_int8_lastdim(k_cache, k_scale)
         v_cache = collectives.dequantize_int8_lastdim(v_cache, v_scale)
@@ -537,7 +570,8 @@ def decode_attention(q, k_cache, v_cache, k_positions, pos,
     hkv = k_cache.shape[2]
     dv = v_cache.shape[-1]
     group = h // hkv
-    scale = 1.0 / np.sqrt(d)
+    if scale is None:
+        scale = 1.0 / np.sqrt(d)
     qg = q.reshape(b, hkv, group, d).float()
     s = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float()) * scale
     pos_b = as_positions(pos, q.device).expand(b)

@@ -75,6 +75,16 @@ class Capabilities:
     why_storage: str = ""
     why_paged: str = ""
 
+    @property
+    def trains(self) -> bool:
+        """The train step takes the family (the port's serve-only
+        families do not: ``why_trains``)."""
+        return self.family not in _SERVE_ONLY
+
+    @property
+    def why_trains(self) -> str:
+        return _SERVE_ONLY.get(self.family, "")
+
 
 _WHY_RAGGED_RECURRENT = (
     "windowed (ring-buffer) and recurrent-state families fold pad tokens "
@@ -106,6 +116,14 @@ _FAMILY_CAPS = {
     "encoder_audio": _ATTENTION_CAPS,
     "hybrid": _RECURRENT_CAPS,
     "ssm_xlstm": _RECURRENT_CAPS,
+    "mla_moe": _ATTENTION_CAPS,
+}
+
+# families served but not trained, and why
+_SERVE_ONLY = {
+    "mla_moe": "its dropless MoE layer computes no load-balance or "
+               "router loss, so the port serves this family and does not "
+               "train it",
 }
 
 
@@ -136,7 +154,8 @@ def require(cfg: ModelConfig, capability: str, flag: str) -> None:
         return
     why = {"ragged": caps.why_ragged,
            "quantized_storage": caps.why_storage,
-           "paged": caps.why_paged}.get(capability, "")
+           "paged": caps.why_paged,
+           "trains": caps.why_trains}.get(capability, "")
     raise NotImplementedError(
         f"{flag} is unsupported for {cfg.name} (family={caps.family}): "
         f"missing capability {capability!r}"

@@ -2,7 +2,9 @@
 
 The port of ``src/repro/models/transformer.py``. Homogeneous stacks
 (dense / moe / mla / hybrid / encoder / vlm) store layer parameters with a
-leading ``layers`` axis; in training each unit of ``cfg.remat_block``
+leading ``layers`` axis (the port's ``mla_moe`` family keeps its leading
+dense layers in a ``dense_layers`` stack beside it; its cache is one
+stack of every layer); in training each unit of ``cfg.remat_block``
 layers runs under ``torch.utils.checkpoint``, as each runs under
 ``jax.checkpoint`` in the reference, so only a unit's input is saved for
 backward. xLSTM stacks are heterogeneous (alternating mLSTM/sLSTM): a
@@ -41,7 +43,9 @@ from repro_torch.models.common import (
 VIT_HIDDEN = 1024    # stub InternViT output dim
 AUDIO_HIDDEN = 512   # stub conv-frontend output dim
 
-SCANNED_FAMILIES = ("dense", "moe", "mla", "hybrid", "encoder_audio", "vlm")
+SCANNED_FAMILIES = ("dense", "moe", "mla", "hybrid", "encoder_audio", "vlm",
+                    "mla_moe")
+MLA_FAMILIES = ("mla", "mla_moe")
 
 MOE_AUX = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
 
@@ -50,10 +54,12 @@ MOE_AUX = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
 # parameter specs
 # ---------------------------------------------------------------------------
 
-def layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
+def layer_specs(cfg: ModelConfig, dense: bool = False) -> Dict[str, Any]:
+    """One layer's leaves; ``dense``: an ``mla_moe`` stack's leading dense
+    layer (a SwiGLU of width ``d_ff`` where the others have experts)."""
     s: Dict[str, Any] = {"ln1": Spec((cfg.d_model,), ("embed",), init="ones"),
                          "ln2": Spec((cfg.d_model,), ("embed",), init="ones")}
-    if cfg.family == "mla":
+    if cfg.family in MLA_FAMILIES:
         s["attn"] = attention.mla_specs(cfg)
     else:
         s["attn"] = attention.gqa_specs(cfg)
@@ -61,6 +67,8 @@ def layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
         s["ssm"] = ssm.ssm_specs(cfg)
     if cfg.family == "moe":
         s["moe"] = moe.moe_specs(cfg)
+    elif cfg.family == "mla_moe" and not dense:
+        s["moe"] = moe.dropless_specs(cfg)
     elif cfg.d_ff > 0:
         s["mlp"] = {
             "gate": Spec((cfg.d_model, cfg.d_ff), ("embed", "mlp")),
@@ -88,6 +96,12 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
             xlstm.mlstm_specs(cfg) if xlstm.is_mlstm_layer(cfg, i)
             else xlstm.slstm_specs(cfg)
             for i in range(cfg.n_layers)]
+    elif cfg.family == "mla_moe":
+        # not one stack: the leading dense layers, then the MoE layers
+        specs["dense_layers"] = stack_layer_specs(
+            layer_specs(cfg, dense=True), cfg.first_dense)
+        specs["layers"] = stack_layer_specs(
+            layer_specs(cfg), cfg.n_layers - cfg.first_dense)
     else:
         specs["layers"] = stack_layer_specs(layer_specs(cfg), cfg.n_layers)
     return specs
@@ -130,7 +144,7 @@ def cache_struct(cfg: ModelConfig, batch: int, seq: int,
              if xlstm.is_mlstm_layer(cfg, i)
              else xlstm.slstm_cache_shape(cfg, batch))
             for i in range(cfg.n_layers)]}
-    if cfg.family == "mla":
+    if cfg.family in MLA_FAMILIES:
         per = attention.mla_cache_shape(cfg, batch, seq)
     else:
         per = attention.gqa_cache_shape(cfg, batch, seq)
@@ -150,7 +164,7 @@ def _flat_cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
     """The flat cache's leaf axes from the family modules' layouts: the
     stack prepends "layers", and each scale leaf is its value leaf's
     layout with the trailing block axis unsharded."""
-    if cfg.family == "mla":
+    if cfg.family in MLA_FAMILIES:
         per = attention.mla_cache_axes()
     else:
         per = attention.gqa_cache_axes()
@@ -268,7 +282,7 @@ def _layer_body(cfg: ModelConfig, mode: str, cache_len_total: int,
         attn_cache = lcache
     elif lcache is not None:
         attn_cache = {"k": lcache["k"], "v": lcache["v"]}
-    if cfg.family == "mla":
+    if cfg.family in MLA_FAMILIES:
         attn_out, new_attn = attention.mla_apply(
             cfg, lp["attn"], h, mode, attn_cache, pos, cache_len_total)
     else:
@@ -287,6 +301,8 @@ def _layer_body(cfg: ModelConfig, mode: str, cache_len_total: int,
         h2 = act_gather(h2, "batch", None, "act_embed")   # sp gather, MLP side
     if cfg.family == "moe":
         y, aux = moe.moe_apply(cfg, lp["moe"], h2, mode=mode)
+    elif "moe" in lp:
+        y = moe.dropless_moe_apply(cfg, lp["moe"], h2, mode=mode)
     elif cfg.d_ff > 0:
         y = swiglu(h2, lp["mlp"]["gate"], lp["mlp"]["up"], lp["mlp"]["down"])
     else:
@@ -315,11 +331,17 @@ def _run_stack(cfg, params, x, mode, cache=None, pos=0, cache_len_total=0):
     rb = max(1, cfg.remat_block)
     n_units = cfg.n_layers // rb
     assert cfg.n_layers % rb == 0, (cfg.n_layers, rb)
-    layers = params["layers"]
+    # layer i's stack and its index there: an mla_moe stack's leading
+    # dense layers are a tree of their own (the cache is one stack)
+    first = cfg.first_dense if cfg.family == "mla_moe" else 0
+    stacks = [(params["layers"], first)] * (cfg.n_layers - first)
+    if first:
+        stacks = [(params["dense_layers"], 0)] * first + stacks
     has_cache = cache is not None and mode == "decode"
 
     def layer(i, xcur):
-        lp = tree_map(lambda t: t[i], layers)
+        layers, off = stacks[i]
+        lp = tree_map(lambda t: t[i - off], layers)
         lcache = {k: v[i] for k, v in cache.items()} if has_cache else None
         return _layer_body(cfg, mode, cache_len_total, xcur, lp, lcache, pos)
 

@@ -46,6 +46,8 @@ CACHE_TRANSFERS = collectives.CACHE_TRANSFERS # prefill->decode handoff wire
 
 
 def make_loss_fn(cfg: ModelConfig):
+    model_registry.require(cfg, "trains", "training")
+
     def loss_fn(params, batch):
         loss, metrics = transformer.forward(cfg, params, batch, "train")
         return loss, metrics
