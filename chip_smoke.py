@@ -118,9 +118,11 @@ Needs one CUDA card and ``nvcc``. Phases, each reported on its own lines:
     the host). (a) the two-stage int8 psum on paper-lm-100m's largest
     gradient leaf, each rank bit for bit against the one-process
     emulation; (b) the data-parallel step, paper-lm-100m at full width,
-    8 x 4096 (2 rows a rank), 5 steps a transport: per-rank step ms, wire
-    bytes by collective (int8_ef fewer than bf16), the loss against the
-    one-process step within phase 9's bf16 bar; (c) the SPMD step under
+    8 x 4096 (2 rows a rank), 5 steps a transport: per-rank step ms, the
+    ring wire bytes of one more untimed step by collective, read by the
+    wire meter (``launch.analysis.trace_collectives``; int8_ef fewer than
+    bf16), the loss against the one-process step within phase 9's bf16
+    bar; (c) the SPMD step under
     ``baseline`` on (data 2, model 2), Granite-3-8B at full width cut to 4
     of 40 layers at 2 x 2048: local shard shapes against
     ``resolve_spec``'s, step ms, the loss against one process; (d) the
@@ -217,6 +219,7 @@ from repro_torch.models import transformer as model_tf  # noqa: E402
 from repro_torch.models import xlstm as model_xlstm  # noqa: E402
 from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.dist import collectives as coll  # noqa: E402
+from repro_torch.launch import analysis  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.train import optimizer as opt_lib  # noqa: E402
@@ -2786,12 +2789,13 @@ def ranks_batches(vocab: int, steps: int, rows: int, seq: int, seed: int
 
 def timed_steps(step_fn, params, opt, batches, dev):
     """``step_fn`` over ``batches``: the final parameters and state, and
-    the run: each step's loss, grad_norm, ms (synchronised) and wire
-    bytes by kind."""
-    run = {"losses": [], "norms": [], "ms": [], "wire": []}
+    the run: each step's loss, grad_norm and ms (synchronised), and the
+    ring wire bytes a step sends by collective, read by the wire meter
+    from one more step on the last batch, untimed, whose result is
+    dropped (the step returns new trees)."""
+    run = {"losses": [], "norms": [], "ms": []}
     for nb in batches:
         nb = {k: v.to(dev) for k, v in nb.items()}
-        coll.reset_wire_bytes()
         sync(dev)
         t0 = time.perf_counter()
         params, opt, m = step_fn(params, opt, nb)
@@ -2799,7 +2803,10 @@ def timed_steps(step_fn, params, opt, batches, dev):
         run["norms"].append(float(m["grad_norm"]))
         sync(dev)
         run["ms"].append((time.perf_counter() - t0) * 1e3)
-        run["wire"].append(coll.wire_bytes())
+    _, ops, _ = analysis.trace_collectives(
+        lambda: step_fn(params, opt, nb), replay=False)
+    run["wire"] = {op: ops[op]["wire_bytes"]
+                   for op in analysis.COLLECTIVE_OPS if ops[op]["count"]}
     return params, opt, run
 
 
@@ -2850,13 +2857,17 @@ def ranks_psum(plan: dict, rank: int, world: int, mesh, dev,
     x, err = carries[rank]
     ms = []
     for _ in range(3):
-        coll.reset_wire_bytes()
         sync(dev)
         t0 = time.perf_counter()
         out, new_err = coll.compressed_psum(x, "data", err, mesh=mesh)
         sync(dev)
         ms.append((time.perf_counter() - t0) * 1e3)
-    wire = coll.wire_bytes()
+    # the ring wire of one more call, untimed, under the wire meter
+    _, ops, _ = analysis.trace_collectives(
+        lambda: coll.compressed_psum(x, "data", err, mesh=mesh),
+        replay=False)
+    wire = {op: ops[op]["wire_bytes"] for op in analysis.COLLECTIVE_OPS
+            if ops[op]["count"]}
     want, want_err = coll.two_stage_int8_psum_plain(torch.stack(
         [(a + e).reshape(-1) for a, e in carries]))
     same = same_bits(out.reshape(-1), want) and \
@@ -2882,7 +2893,6 @@ def ranks_dp(plan: dict, mesh, dev, seed: int) -> dict:
                                  error_feedback=transport == "int8_ef",
                                  ef_devices=1)
         final, opt, run = timed_steps(step_fn, params, opt, batches, dev)
-        run["wire"] = run["wire"][-1]
         run["gap"] = param_gap(final, params, plan["dp_ref"], dev)
         out[transport] = run
         if transport == "int8_ef":
@@ -3068,8 +3078,7 @@ def nccl_rank(rank: int, world: int, init: str, plan: dict,
                                             ef_devices=1),
         ranks_batches(cfg.vocab, 2, plan["dp_batch"], plan["dp_seq"], seed),
         dev)
-    return {**run, "mesh": str(mesh), "round_trip": round_trip,
-            "wire": run["wire"][-1]}
+    return {**run, "mesh": str(mesh), "round_trip": round_trip}
 
 
 def worst_rel(got, want) -> float:
@@ -3317,8 +3326,8 @@ def stored_bytes(cfg, kw: dict, rows: int, total: int) -> int:
 
 def serve_ranks_run(label: str, fn, dev) -> tuple:
     """``fn()`` under a :class:`ServeProbe`: its output and the arm's
-    numbers on this rank."""
-    coll.reset_wire_bytes()
+    numbers on this rank; then ``fn()`` again, untimed, under the wire
+    meter for the ring wire bytes by kind."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3327,13 +3336,15 @@ def serve_ranks_run(label: str, fn, dev) -> tuple:
         out = fn()
         sync(dev)
         wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / (1 << 30) \
+        if dev.type == "cuda" else float("nan")
+    _, _, kinds = analysis.trace_collectives(fn, replay=False)
     return out, {
         "wall_s": wall, "ttft_s": probe.ttft_s, "n_decode": probe.n_decode,
         "decode_ms": med_ms(probe.decode_s),
-        "prefill_ms": med_ms(probe.prefill_s),
-        "peak_gib": torch.cuda.max_memory_allocated(dev) / (1 << 30)
-        if dev.type == "cuda" else float("nan"),
-        "wire": coll.wire_bytes(), "finite": probe.finite,
+        "prefill_ms": med_ms(probe.prefill_s), "peak_gib": peak,
+        "wire": {k: v["wire_bytes"] for k, v in kinds.items()},
+        "finite": probe.finite,
         "first_decode": probe.decode_logits[0].numpy()
         if probe.decode_logits else None,
         "first_decode_tokens": probe.first_decode_tokens,
@@ -3417,11 +3428,12 @@ def ranks_serve(plan: dict, rank: int, dev, seed: int) -> dict:
                                    draw_on_device=dev.type == "cuda")
     mprompts = np.random.default_rng(seed + 1).integers(
         0, mcfg.vocab, (sp["moe_batch"], sp["moe_len"]), dtype=np.int32)
-    a2a_ops.reset_calls()
+    # each call counts afresh: the count read is the metered call's
     toks, run = serve_ranks_run("serve/ranks moe ep int8", lambda: (
+        a2a_ops.reset_calls(),
         serve.generate(mcfg, mparams, mprompts, max_new=sp["moe_new"],
                        mesh=colo, rules=shd.PRESETS["ep"],
-                       act_transport="int8")), dev)
+                       act_transport="int8"))[1], dev)
     run.update(tokens=toks, a2a_calls=a2a_ops.calls(),
                stored=stored_bytes(mcfg, {"mesh": colo}, sp["moe_batch"],
                                    sp["moe_len"] + sp["moe_new"]))

@@ -18,11 +18,12 @@ one rounding, and it fuses the peers' dequantize-and-sum into one
 rounding per added term. The port takes all three, so its outputs and
 residuals equal the jitted reference's bit for bit.
 
-Every collective this module calls goes through :func:`_collective`,
-which counts the bytes handed to it by kind (:func:`wire_bytes`): the
-port's counterpart of the reference's HLO collective byte count. Over
-gloo on the card, the functional all-gather that DTensor calls, which
-segfaults there, is staged through pinned host buffers
+Every collective this module issues is counted, when a
+``launch.analysis.CollectiveMode`` is active, by its HLO op name and by
+the kind :func:`_booked` names (:func:`current_kind`): the port's one
+wire meter, the counterpart of the reference's HLO collective byte
+count. Over gloo on the card, the functional all-gather that DTensor
+calls, which segfaults there, is staged through pinned host buffers
 (:func:`stage_gloo_functional`), decided by the backend before any
 collective runs.
 
@@ -37,9 +38,9 @@ outside every serve scope, where ``act_gather`` is the identity.
 
 from __future__ import annotations
 
-import collections
+import contextlib
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,14 +53,12 @@ _INV_127 = float(np.float32(1.0 / 127.0))
 
 
 # ---------------------------------------------------------------------------
-# the wire: every collective of this module, counted by kind
+# the collectives, and the kind the wire meter books them under
 # ---------------------------------------------------------------------------
 
-# bytes this process handed to each kind of collective since the last reset
-_WIRE: Dict[str, int] = collections.Counter()
-# the same bytes in bf16 equivalents (f32 payloads halved), and the s8 part
-_WIRE_EQ: Dict[str, int] = collections.Counter()
-_WIRE_S8: Dict[str, int] = collections.Counter()
+# the kinds of the collectives in progress, innermost last: what
+# ``launch.analysis.CollectiveMode`` books each collective under
+_KINDS: list = []
 
 # The functional collectives (the ops DTensor calls) that crash over gloo
 # on CUDA tensors: on the card's torch 2.11 ``funcol.all_gather_tensor``
@@ -73,31 +72,19 @@ GLOO_HOST_STAGED = ("all_gather_into_tensor",)
 _staging: list = []
 
 
-def reset_wire_bytes() -> None:
-    _WIRE.clear()
-    _WIRE_EQ.clear()
-    _WIRE_S8.clear()
+def current_kind() -> Optional[str]:
+    """The kind of the collectives in progress, or ``None``."""
+    return _KINDS[-1] if _KINDS else None
 
 
-def wire_bytes() -> Dict[str, int]:
-    """Bytes handed to each kind of collective since the last reset."""
-    return dict(_WIRE)
-
-
-def wire_detail() -> Dict[str, Dict[str, int]]:
-    """Per kind: ``bytes`` (as :func:`wire_bytes`), ``bytes_bf16eq`` (f32
-    payloads counted at half their bytes, as the reference's HLO byte
-    count prices them) and ``bytes_s8`` (the int8 part)."""
-    return {k: {"bytes": _WIRE[k], "bytes_bf16eq": _WIRE_EQ[k],
-                "bytes_s8": _WIRE_S8[k]} for k in _WIRE}
-
-
-def _count(kind: str, t: torch.Tensor) -> None:
-    n = t.numel() * t.element_size()
-    _WIRE[kind] += n
-    _WIRE_EQ[kind] += n // 2 if t.dtype == torch.float32 else n
-    if t.dtype == torch.int8:
-        _WIRE_S8[kind] += n
+@contextlib.contextmanager
+def _booked(kind: str):
+    """The collectives of the block booked under ``kind``."""
+    _KINDS.append(kind)
+    try:
+        yield
+    finally:
+        _KINDS.pop()
 
 
 def _call(kind: str, out: torch.Tensor, inp: torch.Tensor, group,
@@ -114,14 +101,6 @@ def _call(kind: str, out: torch.Tensor, inp: torch.Tensor, group,
         dist.all_gather_into_tensor(out, inp, group=group)
     else:
         raise ValueError(f"unknown collective {kind!r}")
-
-
-def _collective(kind: str, out: torch.Tensor, inp: torch.Tensor,
-                group) -> None:
-    """One collective, its input's bytes counted under ``kind``. For
-    ``all_reduce`` and ``broadcast`` ``out`` is ``inp``, in place."""
-    _count(kind, inp)
-    _call(kind, out, inp, group)
 
 
 def _gloo_host_staged(kind: str, out: torch.Tensor, inp: torch.Tensor,
@@ -164,24 +143,23 @@ def ranked() -> bool:
 
 
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of ``x`` over ``group``, in place (counted)."""
-    _collective("all_reduce", x, x, group)
+    """The sum of ``x`` over ``group``, in place."""
+    _call("all_reduce", x, x, group)
     return x
 
 
 def broadcast(x: torch.Tensor, group=None, src: Optional[int] = None
               ) -> torch.Tensor:
     """``x`` from global rank ``src`` (by default the group's rank 0) to
-    every rank of the group, in place (counted). A host tensor crosses an
-    NCCL group through the card."""
-    if x.device.type == "cpu" and dist.get_backend(group) == "nccl":
-        on_card = x.to(torch.device("cuda", torch.cuda.current_device()))
-        _count("broadcast", on_card)
-        _call("broadcast", on_card, on_card, group, src)
-        x.copy_(on_card)
-    else:
-        _count("broadcast", x)
-        _call("broadcast", x, x, group, src)
+    every rank of the group, in place, booked as ``broadcast``. A host
+    tensor crosses an NCCL group through the card."""
+    with _booked("broadcast"):
+        if x.device.type == "cpu" and dist.get_backend(group) == "nccl":
+            on_card = x.to(torch.device("cuda", torch.cuda.current_device()))
+            _call("broadcast", on_card, on_card, group, src)
+            x.copy_(on_card)
+        else:
+            _call("broadcast", x, x, group, src)
     return x
 
 
@@ -205,13 +183,12 @@ def exchange(kind: str, sends, recvs) -> list:
     """Point-to-point transfers between ranks of the world group, all in
     flight together: ``sends`` is a list of ``(tensor, dst)``, ``recvs``
     a list of ``(shape, dtype, device, src)``; returns the received
-    tensors in ``recvs``' order. The bytes sent are counted under
-    ``kind``. Over gloo a card's tensor crosses through a host copy (gloo
+    tensors in ``recvs``' order. The sends are booked under ``kind``.
+    Over gloo a card's tensor crosses through a host copy (gloo
     moves host memory)."""
     host = dist.get_backend() == "gloo"
     ops, back = [], []
     for t, dst in sends:
-        _count(kind, t)
         t = t.contiguous()
         if host and t.device.type != "cpu":
             t = t.cpu()
@@ -224,8 +201,9 @@ def exchange(kind: str, sends, recvs) -> list:
         ops.append(dist.P2POp(dist.irecv, buf, src))
         back.append((buf, dtype, device))
     if ops:
-        for w in dist.batch_isend_irecv(ops):
-            w.wait()
+        with _booked(kind):
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
     return [buf.view(dtype).to(device) for buf, dtype, device in back]
 
 
@@ -318,8 +296,8 @@ def _two_stage_int8_psum(flat: torch.Tensor, group, block: int
         q1x.copy_(q1)
         s1x.copy_(s1)
     else:
-        _collective("all_to_all_single", q1x, q1, group)
-        _collective("all_to_all_single", s1x, s1, group)
+        _call("all_to_all_single", q1x, q1, group)
+        _call("all_to_all_single", s1x, s1, group)
     mine = _dequant_sum(q1x, s1x)                # (chunk // block, block)
     # stage 2: broadcast the reduced chunk, int8 on the wire again
     q2, s2 = _quantize_blocks(mine)
@@ -331,8 +309,8 @@ def _two_stage_int8_psum(flat: torch.Tensor, group, block: int
         q2g.copy_(q2)
         s2g.copy_(s2)
     else:
-        _collective("all_gather_into_tensor", q2g, q2, group)
-        _collective("all_gather_into_tensor", s2g, s2, group)
+        _call("all_gather_into_tensor", q2g, q2, group)
+        _call("all_gather_into_tensor", s2g, s2, group)
     out = _dequantize_blocks(q2g, s2g).reshape(npad)
     new_err = err1.clone()
     new_err[r * chunk:(r + 1) * chunk] += err2
@@ -400,39 +378,17 @@ def compressed_psum(x: torch.Tensor, axis_name: Optional[str] = None,
 
 
 # ---------------------------------------------------------------------------
-# reshards on a DeviceMesh, counted; local shards and their offsets
+# reshards on a DeviceMesh, booked by kind; local shards and their offsets
 # ---------------------------------------------------------------------------
 
-def _moves_data(old, new) -> bool:
-    """Whether going from placements ``old`` to ``new`` hands data to
-    another rank: every change from a shard or a pending sum does, a
-    replicated dim becoming a shard is a local slice."""
-    return any(a != b and not a.is_replicate() for a, b in zip(old, new))
-
-
-# the kinds of the redistributions in progress, innermost last: what
-# ``launch.analysis.CollectiveMode`` books DTensor's collectives under
-_KINDS: list = []
-
-
-def current_kind() -> Optional[str]:
-    """The kind of the redistribution in progress, or ``None``."""
-    return _KINDS[-1] if _KINDS else None
-
-
 def redistribute(kind: str, x, place):
-    """DTensor ``x`` laid out by ``place``; the local bytes it hands over,
-    if any, counted under ``kind``."""
+    """DTensor ``x`` laid out by ``place``; its collectives, if any,
+    booked under ``kind``."""
     place = tuple(place)
     if tuple(x.placements) == place:
         return x
-    if _moves_data(x.placements, place):
-        _count(kind, x.to_local())
-    _KINDS.append(kind)
-    try:
+    with _booked(kind):
         return x.redistribute(x.device_mesh, place)
-    finally:
-        _KINDS.pop()
 
 
 def target_placements(shape, logical_axes):

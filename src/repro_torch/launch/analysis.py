@@ -690,6 +690,16 @@ def _group_of(name) -> int:
     return _resolve_process_group(name).size()
 
 
+def _size_of(group) -> int:
+    """The size of the process group a c10d op was handed, which the
+    dispatcher passes boxed."""
+    from torch.distributed import ProcessGroup
+
+    if not isinstance(group, ProcessGroup):
+        group = ProcessGroup.unbox(group)
+    return group.size()
+
+
 def _payload(ts) -> Tuple[float, float, float]:
     """(bytes, bf16-equivalent bytes, s8 bytes) of tensors ``ts``: f32
     payloads at half their bytes, as ``_collective_line_bytes`` prices
@@ -733,24 +743,24 @@ def _collective_of(func, args, out):
     if pkt in (fn.broadcast, fn.broadcast_):
         return "collective-permute", [args[0]], _group_of(args[2])
     if pkt in (c10d.allreduce_, c10d.allreduce_coalesced_):
-        return "all-reduce", list(args[0]), args[1].size()
+        return "all-reduce", list(args[0]), _size_of(args[1])
     if pkt is c10d._allgather_base_:
-        return "all-gather", [args[0]], args[2].size()
+        return "all-gather", [args[0]], _size_of(args[2])
     if pkt is c10d.allgather_:
         return "all-gather", [t for ts in args[0] for t in ts], \
-            args[2].size()
+            _size_of(args[2])
     if pkt is c10d.allgather_into_tensor_coalesced_:
-        return "all-gather", list(args[0]), args[2].size()
+        return "all-gather", list(args[0]), _size_of(args[2])
     if pkt is c10d._reduce_scatter_base_:
-        return "reduce-scatter", [args[1]], args[2].size()
+        return "reduce-scatter", [args[1]], _size_of(args[2])
     if pkt is c10d.reduce_scatter_:
         return "reduce-scatter", [t for ts in args[1] for t in ts], \
-            args[2].size()
+            _size_of(args[2])
     if pkt in (c10d.alltoall_base_, c10d.alltoall_):
         outs = args[0] if isinstance(args[0], (list, tuple)) else [args[0]]
-        return "all-to-all", list(outs), args[2].size()
+        return "all-to-all", list(outs), _size_of(args[2])
     if pkt in (c10d.broadcast_, c10d.send):
-        return "collective-permute", list(args[0]), args[1].size()
+        return "collective-permute", list(args[0]), _size_of(args[1])
     return None
 
 
@@ -772,12 +782,13 @@ class CollectiveMode(TorchDispatchMode):
     ``count``, ``bytes`` (the full array), ``bytes_bf16eq``, and the ring
     wire ``_wire_bytes`` gives each, plus the s8 part's bf16-equivalent
     wire. Read :meth:`result`; :attr:`kinds` books the same rows by the
-    kind of the port's own redistribution that issued them
-    (``dist.collectives.redistribute``'s ``kind``: ``act_gather_int8``,
-    ``expert_a2a_int8``, ...), ``"implicit"`` for DTensor's own. Plain
-    tensors, fake or real, run as they would; a DTensor call goes to
-    DTensor first, whose redistributions come back here as functional
-    collectives."""
+    kind the port's own collective that issued them names
+    (``dist.collectives.current_kind``: ``redistribute``'s and
+    ``exchange``'s ``kind``, such as ``act_gather_int8`` or
+    ``cache_move_int8``, and ``"broadcast"``), ``"implicit"`` for
+    DTensor's own and any other. Plain tensors, fake or real, run as
+    they would; a DTensor call goes to DTensor first, whose
+    redistributions come back here as functional collectives."""
 
     def __init__(self):
         super().__init__()
@@ -836,10 +847,9 @@ class CollectiveMode(TorchDispatchMode):
 def trace_collectives(fn: Callable[[], Any], *, replay: bool = True
                       ) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
     """Run ``fn()`` under a :class:`CollectiveMode`, repeated bodies
-    replayed (on fake tensors; pass ``replay=False`` for real ones; a
-    replayed body adds nothing to ``dist.collectives.wire_bytes()``).
-    Returns ``(fn's result, the collectives with their totals, the same
-    rows by kind)``."""
+    replayed (on fake tensors; pass ``replay=False`` for real ones, whose
+    collectives must all run). Returns ``(fn's result, the collectives
+    with their totals, the same rows by kind)``."""
     mode = CollectiveMode()
     rep = _Replay([mode]) if replay else None
     with hooked(rep, None), mode:

@@ -10,8 +10,10 @@ for bit, through ``_two_stage_int8_psum`` itself, ``compressed_psum``
 with ``mesh=`` and ``compressed_psum`` inside ``axis_rules``. The inputs'
 scales span e^-3..e^3 and the residuals stay normal (XLA flushes
 subnormals, eager torch keeps them; ROADMAP section 3). The one-process
-emulation the card is held against equals the reference too, and each
-rank counts the bytes it hands to each collective.
+emulation the card is held against equals the reference too, and the
+wire meter (``launch.analysis.trace_collectives``) books each rank's
+collectives exactly: the exchange's op rows at the full arrays, a
+broadcast under its kind, an all-reduce under its op.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from repro.dist import collectives as ref_coll
 from repro_torch.dist import collectives as coll
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.spawn import run_ranks
+from repro_torch.launch import analysis
 from repro_torch.launch import mesh as mesh_lib
 
 BLOCK = 256
@@ -81,10 +84,15 @@ def _exchange_rank(rank, world, init):
     out = {"two_stage": [], "wire": []}
     for i, n in enumerate(LENGTHS):
         x = torch.from_numpy(payloads(world, n, 10 * world + i)[rank])
-        coll.reset_wire_bytes()
-        o, e = coll._two_stage_int8_psum(x, group, BLOCK)
+        (o, e), ops, _ = analysis.trace_collectives(
+            lambda: coll._two_stage_int8_psum(x, group, BLOCK), replay=False)
         out["two_stage"].append((o.numpy(), e.numpy()))
-        out["wire"].append(coll.wire_bytes())
+        out["wire"].append(ops)
+    _, ops, kinds = analysis.trace_collectives(lambda: (
+        coll.broadcast(torch.full((5,), float(rank)), group),
+        coll.all_reduce(torch.ones(3, dtype=torch.float64), group)),
+        replay=False)
+    out["small"] = (ops, kinds)
     leaf = payloads(world, int(np.prod(LEAF)), 99)[rank].reshape(LEAF)
     err = payloads(world, int(np.prod(LEAF)), 98)[rank].reshape(LEAF) * 1e-3
     o, e = coll.compressed_psum(torch.from_numpy(leaf), "data",
@@ -109,11 +117,29 @@ def test_two_stage_psum_on_gloo_ranks_equals_reference(w, tmp_path):
             assert o.shape == (n,) and e.shape == (n,)
             assert np.array_equal(bits(o), bits(want[r])), (w, n, r)
             assert np.array_equal(bits(e), bits(want_err[r])), (w, n, r)
-            # int8 chunks and f32 scales: the whole payload through the
-            # all-to-all, the owned chunk through the all-gather
-            assert got["wire"][i] == {
-                "all_to_all_single": npad + 4 * npad // BLOCK,
-                "all_gather_into_tensor": (npad + 4 * npad // BLOCK) // w}
+            # int8 chunks and f32 scales, two calls each: the whole
+            # payload through the all-to-all, every owned chunk out of
+            # the all-gather (the full array, as the HLO count books it)
+            ops = got["wire"][i]
+            for op in ("all-to-all", "all-gather"):
+                assert {k: ops[op][k] for k in
+                        ("count", "bytes", "bytes_bf16eq")} == {
+                    "count": 2, "bytes": npad + 4 * npad // BLOCK,
+                    "bytes_bf16eq": npad + 2 * npad // BLOCK}, (op, ops)
+                assert ops[op]["wire_bytes_bf16eq_s8"] == int(
+                    analysis._wire_bytes(op, npad, w))
+            assert ops["total_bytes"] == 2 * (npad + 4 * npad // BLOCK)
+    for got in res:
+        ops, kinds = got["small"]
+        # 5 f32 from rank 0 to every rank, 3 f64 summed over the ring
+        assert kinds["broadcast"]["count"] == 1
+        assert kinds["broadcast"]["bytes"] == 20
+        assert ops["collective-permute"]["bytes"] == 20
+        assert {k: ops["all-reduce"][k] for k in
+                ("count", "bytes", "wire_bytes")} == {
+            "count": 1, "bytes": 24,
+            "wire_bytes": int(analysis._wire_bytes("all-reduce", 24, w))}
+        assert set(kinds) == {"broadcast", "implicit"}
     leaf = payloads(w, int(np.prod(LEAF)), 99).reshape((w,) + LEAF)
     err = payloads(w, int(np.prod(LEAF)), 98).reshape((w,) + LEAF) * 1e-3
     want, want_err = reference_compressed(leaf, err)

@@ -67,6 +67,7 @@ from repro_torch.dist import collectives as coll
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.spawn import run_ranks
 from repro_torch.kernels.expert_a2a import ops as a2a_ops
+from repro_torch.launch import analysis
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import serve
 from repro_torch.models import params_from_jax, transformer
@@ -142,6 +143,12 @@ def _layouts(mesh, cfg, params, out):
     out["layout_mismatches"] = bad
 
 
+def _metered(fn):
+    """``fn()`` under the wire meter: its result and its rows by kind."""
+    got, _, kinds = analysis.trace_collectives(fn, replay=False)
+    return got, kinds
+
+
 def _gathers(mesh, out):
     """all_gather_int8 and stream_int8 on the mesh against one device."""
     from torch.distributed.tensor import distribute_tensor
@@ -155,14 +162,13 @@ def _gathers(mesh, out):
                 x.shape, ("batch", "seq_res", "act_embed"), mesh,
                 shd.PRESETS["serve_sp"]), mesh)
             dt = distribute_tensor(x, mesh, list(src), src_data_rank=None)
-            coll.reset_wire_bytes()
-            y = coll.all_gather_int8(dt, "batch", None, "act_embed")
+            y, wire = _metered(lambda: coll.all_gather_int8(
+                dt, "batch", None, "act_embed"))
             want = coll.target_placements(x.shape, ("batch", None,
                                                     "act_embed"))
             res[f"gather{s}"] = (
                 torch.equal(y.full_tensor(), _round_trip(x)),
-                tuple(y.placements) == tuple(want),
-                coll.wire_bytes())
+                tuple(y.placements) == tuple(want), wire)
     leaf = (torch.randn((2, B, 512, 2, 16), generator=gen) * 2).to(
         torch.bfloat16)
     for s in (512, 40):
@@ -173,12 +179,11 @@ def _gathers(mesh, out):
         dt = distribute_tensor(lf, mesh, list(src), src_data_rank=None)
         want = coll.stream_int8(lf, *axes, seq_axis=2)      # one device
         with shd.axis_rules(mesh, shd.PRESETS["serve_decode"]):
-            coll.reset_wire_bytes()
-            y = coll.stream_int8(dt, *axes, seq_axis=2)
+            y, wire = _metered(lambda: coll.stream_int8(dt, *axes,
+                                                        seq_axis=2))
             tgt = coll.target_placements(lf.shape, axes)
         res[f"stream{s}"] = (torch.equal(y.full_tensor(), want),
-                             tuple(y.placements) == tuple(tgt),
-                             coll.wire_bytes())
+                             tuple(y.placements) == tuple(tgt), wire)
     out["gathers"] = res
 
 
@@ -201,10 +206,8 @@ def _serve_rank(rank, world, init, params_np, moe_np):
         "dec_shape": shd.axis_sizes(dec)}}
 
     def run(name, **kw):
-        coll.reset_wire_bytes()
-        out[name] = serve.generate(cfg, params, prompts, max_new=NEW,
-                                   prompt_lens=lens, **kw)
-        out[name + "_wire"] = coll.wire_bytes()
+        out[name], out[name + "_wire"] = _metered(lambda: serve.generate(
+            cfg, params, prompts, max_new=NEW, prompt_lens=lens, **kw))
 
     run("colo", mesh=mesh)
     run("colo_int8", mesh=mesh, act_transport="int8")
@@ -227,12 +230,10 @@ def _serve_rank(rank, world, init, params_np, moe_np):
                                      prompt_lens=lens, mesh=mesh)
 
     a2a_ops.reset_calls()
-    coll.reset_wire_bytes()
-    out["moe_ep_int8"] = serve.generate(
+    out["moe_ep_int8"], out["moe_wire"] = _metered(lambda: serve.generate(
         moe_cfg, moe_params, prompts[:, :8], max_new=4, mesh=mesh,
-        rules=shd.PRESETS["ep"], act_transport="int8")
+        rules=shd.PRESETS["ep"], act_transport="int8"))
     out["moe_a2a_calls"] = a2a_ops.calls()
-    out["moe_wire"] = coll.wire_bytes()
 
     _layouts(mesh, cfg, params, out)
     _gathers(mesh, out)
@@ -347,13 +348,20 @@ def test_one_process_meshes_are_the_degenerate_pair():
 def test_int8_gathers_equal_the_one_device_round_trip(ranks, case):
     """Bit for bit, in the target layout; the s8 payload is what crosses
     (a shard of 48 or 40 positions holds no whole block, so it is
-    gathered first and the wire carries its raw shard too)."""
+    gathered first and the wire carries its raw shard too; the cache
+    leaf's 40 positions, gathered whole, are then cut where they lie, so
+    only the raw bf16 shard crosses)."""
     for r in ranks:
         same, layout, wire = r["gathers"][case]
         assert same and layout, (case, wire)
         kind = "act_gather_int8" if case.startswith("gather") \
             else "cache_stream_int8"
-        assert wire.get(kind, 0) > 0, wire
+        assert wire[kind]["bytes"] > 0, wire
+        if case == "stream40":
+            assert wire[kind]["wire_bytes_bf16eq_s8"] == 0, wire
+            assert wire[kind]["bytes_bf16eq"] == wire[kind]["bytes"], wire
+        else:
+            assert wire[kind]["wire_bytes_bf16eq_s8"] > 0, wire
 
 
 # ---------------------------------------------------------------------------
@@ -377,8 +385,8 @@ def test_colocated_mesh_tracks_the_reference_single_device(ranks, reference):
 def test_int8_act_transport_tokens_equal_bf16_and_move_fewer_bytes(ranks):
     assert np.array_equal(ranks[0]["colo_int8"], ranks[0]["colo"])
     for r in ranks:
-        bf16 = r["colo_wire"]["act_gather_bf16"]
-        int8 = r["colo_int8_wire"]["act_gather_int8"]
+        bf16 = r["colo_wire"]["act_gather_bf16"]["bytes"]
+        int8 = r["colo_int8_wire"]["act_gather_int8"]["bytes"]
         assert 0 < int8 <= bf16 / 1.5, (int8, bf16)
 
 
@@ -398,9 +406,12 @@ def test_int8_handoff_moves_fewer_bytes(ranks):
     for r in ranks[:2]:                   # the prefill ranks send
         bf16 = r["disagg_wire"]["cache_move_bf16"]
         int8 = r["disagg_int8_wire"]["cache_move_int8"]
-        assert 0 < int8 <= bf16 / 1.5, (int8, bf16)
+        assert bf16["count"] > 0 and int8["count"] > 0, (bf16, int8)
+        assert 0 < int8["bytes"] <= bf16["bytes"] / 1.5, (int8, bf16)
+        assert int8["wire_bytes_bf16eq_s8"] > 0, int8
     for r in ranks[2:]:                   # the decode ranks only receive
         assert "cache_move_bf16" not in r["disagg_wire"]
+        assert "cache_move_int8" not in r["disagg_int8_wire"]
 
 
 def test_slot_streaming_on_the_decode_mesh_equals_colocated(ranks):
