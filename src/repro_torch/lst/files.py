@@ -12,7 +12,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import operator
 from typing import Any, Dict, List, Optional, Tuple
+
+from repro_torch import obs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +85,12 @@ class TableMetadata:
     created_at: float = 0.0
     last_write_at: float = 0.0
 
+    def __post_init__(self) -> None:
+        # the snapshots last serialized, in order, and their JSON; not
+        # fields, so ``dataclasses.asdict`` and ``==`` never see them
+        self._encoded: List[Snapshot] = []
+        self._fragments: List[str] = []
+
     def current(self) -> Optional[Snapshot]:
         for s in self.snapshots:
             if s.snapshot_id == self.current_snapshot_id:
@@ -89,5 +98,30 @@ class TableMetadata:
         return None
 
     def serialize(self) -> bytes:
-        d = dataclasses.asdict(self)
-        return json.dumps(d).encode()
+        """``json.dumps(dataclasses.asdict(self)).encode()``, byte for
+        byte, with each snapshot's JSON encoded once while ``snapshots``
+        only grows: a commit encodes its own snapshot and the header, not
+        the table's history. Counted (when
+        :mod:`repro_torch.obs` is on) as ``lst.meta.snapshots_written``
+        (entries written) and ``lst.meta.snapshots_encoded`` (entries
+        encoded anew)."""
+        snaps, done = self.snapshots, self._encoded
+        if len(done) > len(snaps) or not all(map(operator.is_, snaps, done)):
+            # not the last list grown by appends (expiry dropped its
+            # head): encode it whole, so no fragment outlives its snapshot
+            done, self._fragments = [], []
+        encoded = len(snaps) - len(done)
+        # a committed snapshot is frozen and nothing mutates its summary,
+        # so its JSON stays what it was encoded as
+        self._fragments += [json.dumps(s.to_json())
+                            for s in snaps[len(done):]]
+        self._encoded = list(snaps)
+        frags = self._fragments
+        obs.count("lst.meta.snapshots_written", len(frags))
+        obs.count("lst.meta.snapshots_encoded", encoded)
+        parts = []
+        for f in dataclasses.fields(self):
+            value = "[" + ", ".join(frags) + "]" if f.name == "snapshots" \
+                else json.dumps(getattr(self, f.name))
+            parts.append(f"{json.dumps(f.name)}: {value}")
+        return ("{" + ", ".join(parts) + "}").encode()
