@@ -172,6 +172,89 @@ class LatentMoEConfig(ModelConfig):
         return (self.nope_head_dim + self.rope_head_dim) ** -0.5 * m * m
 
 
+@dataclasses.dataclass(frozen=True)
+class HybridMoEConfig(ModelConfig):
+    """Granite-4.0-H's block (family ``"hybrid_moe"``): a stack of Mamba-2
+    mixers with GQA attention mixers at the layer indices
+    ``attn_layers``, every mixer followed by a dropless MoE of
+    ``n_experts`` routed experts of width ``d_ff_expert`` (top ``top_k``)
+    and one shared SwiGLU of width ``d_ff_shared``.
+
+    The Mamba-2 mixer has ``mamba_heads`` heads of ``mamba_head_dim``
+    (their product is ``ssm_expand * d_model``), a state of ``ssm_state``
+    per head and channel, B and C shared over ``mamba_groups`` groups of
+    heads, a causal conv of width ``ssm_conv`` (with bias) over x, B and C,
+    and a prefill chunk of ``mamba_chunk`` positions.
+
+    Granite's multipliers: the embedding times ``embedding_multiplier``,
+    the attention's softmax scale ``attention_multiplier``, each mixer's
+    and each MoE's output times ``residual_multiplier`` before its
+    residual add, and the logits divided by ``logits_scaling``. ``nope``:
+    the attention applies no rotary positions. The router softmaxes the
+    ``top_k`` best logits, which is a softmax over every expert
+    renormalised over the chosen ones.
+
+    A family of the port alone, outside ``FAMILIES`` as ``mla_moe`` is.
+    """
+    families: ClassVar[Tuple[str, ...]] = ("hybrid_moe",)
+    # the dropless MoE's router (models/moe.py::route): renormalised gates
+    norm_topk: ClassVar[bool] = True
+    routed_scale: ClassVar[float] = 1.0
+
+    attn_layers: Tuple[int, ...] = ()
+    mamba_heads: int = 0
+    mamba_head_dim: int = 0
+    mamba_groups: int = 1
+    mamba_chunk: int = 256
+    d_ff_shared: int = 0
+    embedding_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    nope: bool = False
+
+    def __post_init__(self):
+        super().__post_init__()
+        object.__setattr__(self, "attn_layers", tuple(self.attn_layers))
+        if any(not 0 <= i < self.n_layers for i in self.attn_layers) \
+                or len(set(self.attn_layers)) != len(self.attn_layers):
+            raise ValueError(f"attn_layers {self.attn_layers} must be "
+                             f"distinct layer indices below {self.n_layers}")
+        if self.mamba_heads * self.mamba_head_dim \
+                != self.ssm_expand * self.d_model:
+            raise ValueError("mamba_heads x mamba_head_dim must equal "
+                             "ssm_expand x d_model")
+        if self.mamba_heads % self.mamba_groups:
+            raise ValueError("mamba_groups must divide mamba_heads")
+
+    @property
+    def n_shared_experts(self) -> int:
+        return 1 if self.d_ff_shared else 0
+
+    @property
+    def n_mamba_layers(self) -> int:
+        return self.n_layers - len(self.attn_layers)
+
+    @property
+    def softmax_scale(self) -> float:
+        return self.attention_multiplier or self.head_dim ** -0.5
+
+
+def _hybrid_moe_count(c: HybridMoEConfig, active_only: bool) -> int:
+    """Every leaf of the ``hybrid_moe`` tree, norm scales included."""
+    d = c.d_model
+    di = c.ssm_expand * d
+    conv = di + 2 * c.mamba_groups * c.ssm_state
+    mamba = d * (di + conv + c.mamba_heads) + c.ssm_conv * conv + conv \
+        + 3 * c.mamba_heads + di + di * d
+    attn = 2 * d * c.q_dim + 2 * d * c.kv_dim
+    routed = c.top_k if active_only else c.n_experts
+    moe = d * c.n_experts + 3 * d * (routed * c.d_ff_expert + c.d_ff_shared)
+    emb = c.vocab * d * (1 if c.tie_embeddings else 2) + d
+    return emb + c.n_mamba_layers * mamba + len(c.attn_layers) * attn \
+        + c.n_layers * (moe + 2 * d)
+
+
 def _latent_moe_count(c: LatentMoEConfig, active_only: bool) -> int:
     """Every leaf of the ``mla_moe`` tree, norm scales included."""
     d, h = c.d_model, c.n_heads
@@ -191,6 +274,8 @@ def _latent_moe_count(c: LatentMoEConfig, active_only: bool) -> int:
 def _param_count(c: ModelConfig, active_only: bool) -> int:
     if c.family == "mla_moe":
         return _latent_moe_count(c, active_only)
+    if c.family == "hybrid_moe":
+        return _hybrid_moe_count(c, active_only)
     d = c.d_model
     emb = c.vocab * d * (1 if c.tie_embeddings else 2)
     per_layer = 0
@@ -251,6 +336,7 @@ ARCH_IDS: Tuple[str, ...] = tuple(k for k in _REGISTRY if k != "paper-lm-100m")
 # package has no counterpart)
 _PORT_REGISTRY = {
     "deepseek-v2-lite": "repro_torch.configs.deepseek_v2_lite",
+    "granite-4.0-h-small": "repro_torch.configs.granite_4_0_h_small",
 }
 
 
@@ -296,4 +382,18 @@ def smoke_config(arch_id: str, *, n_layers: int = 2, vocab: int = 256) -> ModelC
                   n_experts=8, top_k=3, d_ff_expert=16,
                   rope_theta=c.rope_theta, norm_eps=c.norm_eps)
         return LatentMoEConfig(**kw)
+    if c.family == "hybrid_moe":
+        # every mechanism kept: Mamba-2 layers around attention layers in
+        # the published period's order (4 and 2 of 6), one group, the
+        # shared expert, Granite's multipliers, NoPE, and a chunk of 8,
+        # so that prefills cross chunk boundaries and end ragged
+        base = {f.name for f in dataclasses.fields(ModelConfig)}
+        kw.update({f.name: getattr(c, f.name)
+                   for f in dataclasses.fields(c) if f.name not in base})
+        kw.update(n_layers=6, attn_layers=(2, 5), ssm_state=16,
+                  ssm_expand=c.ssm_expand, ssm_conv=c.ssm_conv,
+                  mamba_heads=8, mamba_head_dim=16, mamba_chunk=8,
+                  n_experts=8, top_k=3, d_ff_expert=16, d_ff_shared=32,
+                  rope_theta=c.rope_theta, norm_eps=c.norm_eps)
+        return HybridMoEConfig(**kw)
     return ModelConfig(**kw)

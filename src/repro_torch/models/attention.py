@@ -158,11 +158,15 @@ def gqa_apply(cfg: ModelConfig, p, x: torch.Tensor, mode: str,
     k = constrain(k, "batch", None, "kv_heads", None)
     v = constrain(v, "batch", None, "kv_heads", None)
 
+    # NoPE (Granite-4.0-H's attention) applies no rotary positions
+    rope = not getattr(cfg, "nope", False)
+    scale = _softmax_scale(cfg)
     if mode == "decode":
         pos_t = as_positions(pos, x.device)
         pos_bt = pos_t.reshape(pos_t.shape + (1,)).expand(b, 1)  # scalar or (B,)
-        q = apply_rope(q, pos_bt, cfg.rope_theta)
-        k = apply_rope(k, pos_bt, cfg.rope_theta)
+        if rope:
+            q = apply_rope(q, pos_bt, cfg.rope_theta)
+            k = apply_rope(k, pos_bt, cfg.rope_theta)
         size = cache["k"].shape[1]
         cache_sp = ("batch", "kv_seq", "kv_heads", None)
         storage = collectives.current_kv_storage()
@@ -194,16 +198,18 @@ def gqa_apply(cfg: ModelConfig, p, x: torch.Tensor, mode: str,
         if storage == "int8":
             out = decode_attention(q, k_att, v_att, kpos, pos_t,
                                    k_scale=constrain(k_scale, *gather_sp),
-                                   v_scale=constrain(v_scale, *gather_sp))
+                                   v_scale=constrain(v_scale, *gather_sp),
+                                   scale=scale)
             new_cache = {"k": k_cache, "v": v_cache,
                          "k_scale": k_scale, "v_scale": v_scale}
         else:
-            out = decode_attention(q, k_att, v_att, kpos, pos_t)
+            out = decode_attention(q, k_att, v_att, kpos, pos_t, scale=scale)
             new_cache = {"k": k_cache, "v": v_cache}
     else:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
         new_cache = None
         if mode == "prefill":
             size = cfg.attn_window or s
@@ -218,7 +224,7 @@ def gqa_apply(cfg: ModelConfig, p, x: torch.Tensor, mode: str,
             k = constrain(torch.repeat_interleave(k, rep, dim=2), "batch", None, "heads", None)
             v = constrain(torch.repeat_interleave(v, rep, dim=2), "batch", None, "heads", None)
         out = blockwise_attention(q, k, v, causal=cfg.causal,
-                                  window=cfg.attn_window)
+                                  window=cfg.attn_window, scale=scale)
     y = constrain(einsum("bshk,hkd->bsd", out, p["wo"]),
                   "batch", None, "act_embed")
     return y, new_cache
@@ -309,9 +315,10 @@ def _mla_expand(cfg, p, latent, k_rope):
         return k.transpose(1, 2), v.transpose(1, 2)
 
 
-def _mla_scale(cfg):
-    """The softmax scale a config sets (YaRN's), else None: the
-    attention's own 1/sqrt(head dim)."""
+def _softmax_scale(cfg):
+    """The softmax scale a config sets (YaRN's, Granite-4.0-H's
+    ``attention_multiplier``), else None: the attention's own
+    1/sqrt(head dim)."""
     return getattr(cfg, "softmax_scale", None)
 
 
@@ -357,7 +364,8 @@ def mla_apply(cfg: ModelConfig, p, x, mode, cache, pos, cache_len_total):
         k, v = _mla_expand(cfg, p, lat_att, kr_att[..., 0, :])
         kpos = cache_slot_positions(cache_len_total + 1, lat_cache.shape[1],
                                     pos_t)
-        out = decode_attention(q, k, v, kpos, pos_t, scale=_mla_scale(cfg))
+        out = decode_attention(q, k, v, kpos, pos_t,
+                               scale=_softmax_scale(cfg))
         new_cache = {"latent": lat_cache, "k_rope": kr_cache}
         if storage == "int8":
             new_cache["latent_scale"] = lat_scale
@@ -373,7 +381,7 @@ def mla_apply(cfg: ModelConfig, p, x, mode, cache, pos, cache_len_total):
         q, latent, k_rope = _mla_qk(cfg, p, x, positions)
         k, v = _mla_expand(cfg, p, latent, k_rope)
         out = blockwise_attention(q, k, v, causal=cfg.causal,
-                                  scale=_mla_scale(cfg))
+                                  scale=_softmax_scale(cfg))
         new_cache = None
         if mode == "prefill":
             new_cache = {"latent": latent.to(common.COMPUTE_DTYPE),

@@ -117,6 +117,7 @@ _FAMILY_CAPS = {
     "hybrid": _RECURRENT_CAPS,
     "ssm_xlstm": _RECURRENT_CAPS,
     "mla_moe": _ATTENTION_CAPS,
+    "hybrid_moe": _RECURRENT_CAPS,
 }
 
 # families served but not trained, and why
@@ -124,6 +125,9 @@ _SERVE_ONLY = {
     "mla_moe": "its dropless MoE layer computes no load-balance or "
                "router loss, so the port serves this family and does not "
                "train it",
+    "hybrid_moe": "its dropless MoE layer computes no load-balance or "
+                  "router loss, so the port serves this family and does "
+                  "not train it",
 }
 
 

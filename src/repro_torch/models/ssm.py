@@ -1,4 +1,6 @@
-"""Selective SSM (Mamba-style) head used by the Hymba hybrid layer.
+"""Selective SSM (Mamba-style) head used by the Hymba hybrid layer, and
+the Mamba-2 mixer of the port's ``hybrid_moe`` family (Granite-4.0-H,
+below ``ssm_cache_axes``).
 
 The port of ``src/repro/models/ssm.py``. The (B, c, di, N) state tensors
 are built one chunk of ``CHUNK`` positions at a time, so peak memory is
@@ -21,8 +23,10 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs import ModelConfig
 from repro_torch.dist.sharding import constrain
+from repro_torch.models import common
 from repro_torch.models.common import Spec, einsum, repeated
 
 DT_RANK = 16
@@ -153,3 +157,188 @@ def ssm_cache_axes():
     leaves as whole-row overwrites."""
     return {"conv": ("batch", None, "ssm_inner"),
             "ssm": ("batch", "ssm_inner", "ssm_state")}
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (the port's own, family ``hybrid_moe``: Granite-4.0-H)
+# ---------------------------------------------------------------------------
+#
+# A scalar decay per head, B and C shared over a group of heads, the conv
+# over x, B and C together, a gated RMSNorm before ``out_proj``
+# (``GraniteMoeHybridMambaLayer``). Per head h, channel p and state n:
+#
+#   h[t] = exp(dt[t] A) h[t-1] + dt[t] x[t, p] B[t, n]
+#   y[t, p] = sum_n C[t, n] h[t, p, n] + D x[t, p]
+#
+# Prefill runs the SSD chunked form, which keeps one state per chunk
+# boundary and never one per position; decode runs the one-step
+# recurrence on the resident state in f32.
+
+def mamba2_dims(cfg) -> Tuple[int, int, int]:
+    """(inner width, conv width over x, B and C, heads)."""
+    di = cfg.ssm_expand * cfg.d_model
+    return di, di + 2 * cfg.mamba_groups * cfg.ssm_state, cfg.mamba_heads
+
+
+def mamba2_specs(cfg) -> Dict[str, Spec]:
+    d = cfg.d_model
+    di, cd, h = mamba2_dims(cfg)
+    return {
+        # z (di), xBC (cd) and dt (h), in the published order
+        "in_proj": Spec((d, di + cd + h), ("embed", None)),
+        "conv_w": Spec((cfg.ssm_conv, cd), ("conv", None)),
+        "conv_b": Spec((cd,), (None,), init="zeros"),
+        "dt_bias": Spec((h,), (None,), init="zeros", dtype=torch.float32),
+        "a_log": Spec((h,), (None,), init="zeros", dtype=torch.float32),
+        "d_skip": Spec((h,), (None,), init="ones", dtype=torch.float32),
+        "norm": Spec((di,), ("ssm_inner",), init="ones"),
+        "out_proj": Spec((di, d), ("ssm_inner", "embed")),
+    }
+
+
+def mamba2_cache_shape(cfg, batch: int):
+    _, cd, h = mamba2_dims(cfg)
+    return {"conv": (batch, cfg.ssm_conv - 1, cd),
+            "state": (batch, h, cfg.mamba_head_dim, cfg.ssm_state)}
+
+
+def mamba2_cache_axes():
+    """Logical axes of the Mamba-2 row state (the stack prepends its
+    "layers" axis); no ``kv_seq`` axis, so a slot admits it whole."""
+    return {"conv": ("batch", None, None),
+            "state": ("batch", None, None, None)}
+
+
+def _conv_bias(p, xbc, conv_state):
+    """The causal depthwise conv with bias over xBC (B,S,cd), then SiLU,
+    in f32; ``conv_state`` (B,K-1,cd) is the inputs before ``xbc`` (None:
+    zeros). Returns the activations and the last K-1 inputs."""
+    k = p["conv_w"].shape[0]
+    if conv_state is None:
+        conv_state = xbc.new_zeros((xbc.shape[0], k - 1, xbc.shape[2]))
+    xp = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)
+    w = p["conv_w"].float()
+    out = p["conv_b"].float() + sum(xp[:, i:i + xbc.shape[1]].float() * w[i]
+                                    for i in range(k))
+    return F.silu(out), xp[:, xp.shape[1] - (k - 1):]
+
+
+def _heads(t, groups: int, heads: int):
+    """A group's (B,...,g,N) B or C repeated over its heads: (B,...,h,N)."""
+    return t.repeat_interleave(heads // groups, dim=-2) if groups > 1 \
+        else t.expand(*t.shape[:-2], heads, t.shape[-1])
+
+
+def ssd_scan(x, dt, a, bm, cm, chunk: int):
+    """The SSD chunked scan from a zero state. x (B,S,h,P), dt (B,S,h)
+    f32, a (h,) f32, bm and cm (B,S,g,N), head i in group i // (h/g).
+    Returns y (B,S,h,P) (no skip term) and the state after the last
+    position (B,h,P,N), both in ``dt``'s dtype.
+
+    Positions are padded to whole chunks with dt = 0, which leaves the
+    state as it was (decay 1, input 0), so any length is taken and the
+    final state is the last real position's. Within a chunk the output is
+    C B^T masked by the decay between positions; across chunks one state
+    per boundary is carried."""
+    b, s, h, pd = x.shape
+    g, n = bm.shape[-2:]
+    k = h // g
+    c = min(chunk, s)
+    pad = (-s) % c
+    if pad:
+        x, bm, cm = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, bm, cm))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    nc = (s + pad) // c
+    bm = bm.to(dt.dtype).reshape(b, nc, c, g, n)
+    cm = cm.to(dt.dtype).reshape(b, nc, c, g, n)
+    dt = dt.reshape(b, nc, c, g, k)
+    xdt = x.to(dt.dtype).reshape(b, nc, c, g, k, pd) * dt[..., None]
+    cum = torch.cumsum(dt * a.reshape(g, k), dim=2)          # (B,nc,c,g,k)
+    # within a chunk: position l reads position j <= l, decayed by
+    # exp(cum[l] - cum[j])
+    seg = cum.permute(0, 1, 3, 4, 2)                         # (B,nc,g,k,c)
+    causal = torch.ones(c, c, dtype=torch.bool, device=x.device).tril()
+    decay = (seg[..., :, None] - seg[..., None, :]).masked_fill_(
+        ~causal, float("-inf")).exp_()                       # (..,c,c)
+    decay.mul_(torch.einsum("bzlgn,bzjgn->bzglj", cm, bm)[:, :, :, None])
+    y = torch.einsum("bzgklj,bzjgkp->bzlgkp", decay, xdt)
+    # each chunk's own input, decayed to its end
+    to_end = torch.exp(cum[:, :, -1:] - cum)                 # (B,nc,c,g,k)
+    local = torch.einsum("bzjgk,bzjgkp,bzjgn->bzgkpn", to_end, xdt, bm)
+    # one state per boundary: the state entering each chunk
+    whole = torch.exp(cum[:, :, -1])                         # (B,nc,g,k)
+    state = xdt.new_zeros((b, g, k, pd, n))
+    entering = []
+    for z in range(nc):
+        entering.append(state)
+        state = state * whole[:, z, ..., None, None] + local[:, z]
+    entering = torch.stack(entering, 1)                      # (B,nc,g,k,P,N)
+    y = y + torch.einsum("bzlgn,bzgkpn->bzlgkp", cm, entering) \
+        * torch.exp(cum)[..., None]
+    return y.reshape(b, nc * c, h, pd)[:, :s], state.reshape(b, h, pd, n)
+
+
+def _mamba2_step(state, x, dt, a, bm, cm):
+    """One decode step of the recurrence in f32 on the resident state
+    (B,h,P,N): x (B,h,P), dt (B,h), bm and cm (B,g,N). Returns y (B,h,P)
+    f32 and the new state in ``state``'s dtype; with recording on, counts
+    the bytes of the state-shaped tensors it makes."""
+    hs = state.to(torch.float32, copy=True)
+    bh = _heads(bm.float(), bm.shape[-2], x.shape[1])
+    ch = _heads(cm.float(), cm.shape[-2], x.shape[1])
+    hs.mul_(torch.exp(dt * a)[..., None, None])
+    hs.addcmul_((dt[..., None] * x.float())[..., None], bh[:, :, None, :])
+    y = torch.einsum("bhpn,bhn->bhp", hs, ch)
+    new = hs.to(state.dtype)
+    if obs.on():
+        obs.count("ssm.decode.work_bytes", hs.nbytes + new.nbytes)
+    return y, new
+
+
+def mamba2_apply(cfg, p, x: torch.Tensor, mode: str,
+                 cache: Optional[dict]) -> Tuple[torch.Tensor, Optional[dict]]:
+    """x: (B,S,d) -> (B,S,d). ``cache`` {"conv": (B,K-1,cd), "state":
+    (B,h,P,N)} in decode; prefill returns it in ``COMPUTE_DTYPE``.
+
+    Recorded by :mod:`repro_torch.obs` when on: spans ``ssm.conv``,
+    ``ssm.scan`` (prefill's SSD) and ``ssm.update`` (decode's
+    recurrence); counters ``ssm.<mode>.state_bytes`` (the recurrent state
+    decode reads, or prefill hands to the cache) and
+    ``ssm.decode.work_bytes``, from shapes."""
+    b, s, _ = x.shape
+    di, cd, h = mamba2_dims(cfg)
+    g, n, pd = cfg.mamba_groups, cfg.ssm_state, cfg.mamba_head_dim
+    z, xbc, dt = torch.split(einsum("bsd,de->bse", x, p["in_proj"]),
+                             [di, cd, h], dim=-1)
+    decode = mode == "decode"
+    with obs.span("ssm.conv"):
+        xbc, conv_tail = _conv_bias(p, xbc, cache["conv"] if decode
+                                    else None)
+    xs, bm, cm = torch.split(xbc, [di, g * n, g * n], dim=-1)
+    xs = xs.reshape(b, s, h, pd)
+    bm, cm = bm.reshape(b, s, g, n), cm.reshape(b, s, g, n)
+    dt = F.softplus(dt.float() + p["dt_bias"])                # (B,S,h)
+    a = -torch.exp(p["a_log"].float())
+    new_cache = None
+    if decode:
+        with obs.span("ssm.update"):
+            y, state = _mamba2_step(cache["state"], xs[:, 0], dt[:, 0], a,
+                                    bm[:, 0], cm[:, 0])
+        y = y[:, None]
+        new_cache = {"conv": conv_tail.to(cache["conv"].dtype),
+                     "state": state}
+    else:
+        with obs.span("ssm.scan"):
+            y, state = ssd_scan(xs, dt, a, bm, cm, cfg.mamba_chunk)
+        if mode == "prefill":
+            dt_c = common.COMPUTE_DTYPE
+            new_cache = {"conv": conv_tail.to(dt_c), "state": state.to(dt_c)}
+    if new_cache is not None and obs.on():
+        obs.count(f"ssm.{mode}.state_bytes",
+                  sum(t.nbytes for t in new_cache.values()))
+    y = y + xs * p["d_skip"][:, None]
+    # the gated RMSNorm over the inner width, in f32
+    y = y.reshape(b, s, di) * F.silu(z.float())
+    y = y * torch.rsqrt(y.square().mean(-1, keepdim=True) + cfg.norm_eps)
+    y = y.to(x.dtype) * p["norm"].to(x.dtype)
+    return einsum("bsi,id->bsd", y, p["out_proj"]), new_cache

@@ -4,10 +4,13 @@ The port of ``src/repro/models/transformer.py``. Homogeneous stacks
 (dense / moe / mla / hybrid / encoder / vlm) store layer parameters with a
 leading ``layers`` axis (the port's ``mla_moe`` family keeps its leading
 dense layers in a ``dense_layers`` stack beside it; its cache is one
-stack of every layer); in training each unit of ``cfg.remat_block``
-layers runs under ``torch.utils.checkpoint``, as each runs under
-``jax.checkpoint`` in the reference, so only a unit's input is saved for
-backward. xLSTM stacks are heterogeneous (alternating mLSTM/sLSTM): a
+stack of every layer. The port's ``hybrid_moe`` family keeps its Mamba-2
+layers in ``layers`` and its attention layers in ``attn_layers``; its
+cache is two stacks, ``k``/``v`` over the attention layers and
+``ssm_conv``/``ssm_state`` over the Mamba-2 ones); in training each unit
+of ``cfg.remat_block`` layers runs under ``torch.utils.checkpoint``, as
+each runs under ``jax.checkpoint`` in the reference, so only a unit's
+input is saved for backward. xLSTM stacks are heterogeneous (alternating mLSTM/sLSTM): a
 ``blocks`` list, one checkpointed block at a time.
 
 ``forward(cfg, params, batch, mode, cache, cache_len_total)``, a plain
@@ -78,6 +81,19 @@ def layer_specs(cfg: ModelConfig, dense: bool = False) -> Dict[str, Any]:
     return s
 
 
+def hybrid_layer_specs(cfg: ModelConfig, attn: bool) -> Dict[str, Any]:
+    """One ``hybrid_moe`` layer's leaves: its mixer (GQA attention or
+    Mamba-2) and its MoE with the shared expert."""
+    s: Dict[str, Any] = {"ln1": Spec((cfg.d_model,), ("embed",), init="ones"),
+                         "ln2": Spec((cfg.d_model,), ("embed",), init="ones")}
+    if attn:
+        s["attn"] = attention.gqa_specs(cfg)
+    else:
+        s["ssm"] = ssm.mamba2_specs(cfg)
+    s["moe"] = moe.dropless_specs(cfg)
+    return s
+
+
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     d, v = cfg.d_model, cfg.vocab
     specs: Dict[str, Any] = {
@@ -102,6 +118,12 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
             layer_specs(cfg, dense=True), cfg.first_dense)
         specs["layers"] = stack_layer_specs(
             layer_specs(cfg), cfg.n_layers - cfg.first_dense)
+    elif cfg.family == "hybrid_moe":
+        # two stacks: the Mamba-2 layers and the attention layers
+        specs["layers"] = stack_layer_specs(
+            hybrid_layer_specs(cfg, attn=False), cfg.n_mamba_layers)
+        specs["attn_layers"] = stack_layer_specs(
+            hybrid_layer_specs(cfg, attn=True), len(cfg.attn_layers))
     else:
         specs["layers"] = stack_layer_specs(layer_specs(cfg), cfg.n_layers)
     return specs
@@ -148,7 +170,13 @@ def cache_struct(cfg: ModelConfig, batch: int, seq: int,
         per = attention.mla_cache_shape(cfg, batch, seq)
     else:
         per = attention.gqa_cache_shape(cfg, batch, seq)
-    out = {k: (cfg.n_layers,) + v for k, v in per.items()}
+    if cfg.family == "hybrid_moe":
+        # k/v over the attention layers, the row state over the Mamba-2 ones
+        out = {k: (len(cfg.attn_layers),) + v for k, v in per.items()}
+        for k, v in ssm.mamba2_cache_shape(cfg, batch).items():
+            out["ssm_" + k] = (cfg.n_mamba_layers,) + v
+    else:
+        out = {k: (cfg.n_layers,) + v for k, v in per.items()}
     if cfg.family == "hybrid":
         for k, v in ssm.ssm_cache_shape(cfg, batch).items():
             out["ssm_" + k] = (cfg.n_layers,) + v
@@ -171,6 +199,9 @@ def _flat_cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
     out = {k: ("layers",) + v for k, v in per.items()}
     if cfg.family == "hybrid":
         for k, v in ssm.ssm_cache_axes().items():
+            out["ssm_" + k] = ("layers",) + v
+    if cfg.family == "hybrid_moe":
+        for k, v in ssm.mamba2_cache_axes().items():
             out["ssm_" + k] = ("layers",) + v
     for k in QUANTIZABLE_CACHE_KEYS:
         if k in out:
@@ -318,32 +349,79 @@ def _layer_body(cfg: ModelConfig, mode: str, cache_len_total: int,
     return x, new_cache, aux
 
 
+@repeated
+def _hybrid_moe_body(cfg, mode: str, cache_len_total: int, x, lp, lcache,
+                     pos):
+    """One ``hybrid_moe`` layer: ``x + r * mixer(norm(x))``, then
+    ``x + r * (moe(norm(x)) + shared(norm(x)))``, ``r`` Granite's
+    residual multiplier. ``lcache`` holds the layer's own leaves of its
+    kind's stack: ``k``/``v`` or ``ssm_conv``/``ssm_state``."""
+    r = cfg.residual_multiplier
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if "attn" in lp:
+        y, new = attention.gqa_apply(cfg, lp["attn"], h, mode, lcache, pos,
+                                     cache_len_total)
+    else:
+        y, new = ssm.mamba2_apply(
+            cfg, lp["ssm"], h, mode,
+            None if lcache is None else {"conv": lcache["ssm_conv"],
+                                         "state": lcache["ssm_state"]})
+        if new is not None:
+            new = {"ssm_conv": new["conv"], "ssm_state": new["state"]}
+    x = x + r * y
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    x = x + r * moe.dropless_moe_apply(cfg, lp["moe"], h2, mode=mode)
+    return x, new, {}
+
+
+def _layer_sites(cfg, params):
+    """Each layer's parameter stack, its index there, and the cache
+    leaves it reads at that index (None: every leaf, at the layer's own
+    index). An ``mla_moe`` stack's leading dense layers are a tree of
+    their own (its cache is one stack); a ``hybrid_moe`` layer's index is
+    its place among the layers of its kind, in parameters and cache."""
+    if cfg.family == "hybrid_moe":
+        sites, seen = [], {True: 0, False: 0}
+        for i in range(cfg.n_layers):
+            attn = i in cfg.attn_layers
+            sites.append((params["attn_layers" if attn else "layers"],
+                          seen[attn], ("k", "v") if attn
+                          else ("ssm_conv", "ssm_state")))
+            seen[attn] += 1
+        return sites
+    first = cfg.first_dense if cfg.family == "mla_moe" else 0
+    return [(params["dense_layers"], i, None) if i < first
+            else (params["layers"], i - first, None)
+            for i in range(cfg.n_layers)]
+
+
 def _run_stack(cfg, params, x, mode, cache=None, pos=0, cache_len_total=0):
     """Run the stacked layers. Returns (x, new_cache, aux).
 
     Training: ``cfg.remat_block`` layers form one rematerialization unit
     under ``torch.utils.checkpoint``, so only the unit's input is saved
     for backward and the unit runs forward again in backward. The serve
-    modes run each layer once, layer ``l`` reading ``cache[leaf][l]``;
-    prefill and decode stack the layers' new caches along a leading
-    ``layers`` axis.
+    modes run each layer once, layer ``l`` reading ``cache[leaf][l]``
+    (a ``hybrid_moe`` layer its own kind's leaves at its place among
+    that kind, :func:`_layer_sites`); prefill and decode stack the
+    layers' new caches along a leading ``layers`` axis, each leaf over
+    the layers that hold it.
     """
     rb = max(1, cfg.remat_block)
     n_units = cfg.n_layers // rb
     assert cfg.n_layers % rb == 0, (cfg.n_layers, rb)
-    # layer i's stack and its index there: an mla_moe stack's leading
-    # dense layers are a tree of their own (the cache is one stack)
-    first = cfg.first_dense if cfg.family == "mla_moe" else 0
-    stacks = [(params["layers"], first)] * (cfg.n_layers - first)
-    if first:
-        stacks = [(params["dense_layers"], 0)] * first + stacks
+    sites = _layer_sites(cfg, params)
+    body = _hybrid_moe_body if cfg.family == "hybrid_moe" else _layer_body
     has_cache = cache is not None and mode == "decode"
 
     def layer(i, xcur):
-        layers, off = stacks[i]
-        lp = tree_map(lambda t: t[i - off], layers)
-        lcache = {k: v[i] for k, v in cache.items()} if has_cache else None
-        return _layer_body(cfg, mode, cache_len_total, xcur, lp, lcache, pos)
+        layers, j, keys = sites[i]
+        lp = tree_map(lambda t: t[j], layers)
+        lcache = None
+        if has_cache:
+            lcache = {k: v[i] for k, v in cache.items()} if keys is None \
+                else {k: cache[k][j] for k in keys}
+        return body(cfg, mode, cache_len_total, xcur, lp, lcache, pos)
 
     def unit_body(xcur, u):
         aux_tot = {}
@@ -370,8 +448,10 @@ def _run_stack(cfg, params, x, mode, cache=None, pos=0, cache_len_total=0):
             caches.append(lc)
             aux_acc = {k: aux_acc[k] + aux[k] for k in aux_acc}
         if mode in ("decode", "prefill") and caches[0] is not None:
-            new_cache = {k: torch.stack([c[k] for c in caches])
-                         for k in caches[0]}
+            # each leaf stacked over the layers that hold it
+            keys = dict.fromkeys(k for c in caches for k in c)
+            new_cache = {k: torch.stack([c[k] for c in caches if k in c])
+                         for k in keys}
     if cfg.family == "moe":
         aux_acc = {k: v / cfg.n_layers for k, v in aux_acc.items()}
     return x, new_cache, aux_acc
@@ -436,6 +516,8 @@ def _embed(table, ids):
 def _logits(cfg, params, x):
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     out = einsum("...d,dv->...v", x, head)
+    if cfg.family == "hybrid_moe":
+        out = out / cfg.logits_scaling
     return constrain(out, *(("batch",) + (None,) * (out.ndim - 2) + ("vocab",)))
 
 
@@ -452,6 +534,8 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, Any],
     if mode not in ("train", "encode", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     x = _embed_inputs(cfg, params, batch, mode)
+    if cfg.family == "hybrid_moe":
+        x = x * cfg.embedding_multiplier
     pos = batch.get("pos", 0)
     if cfg.family == "ssm_xlstm":
         x, new_cache, aux = _run_xlstm(cfg, params, x, mode, cache)
